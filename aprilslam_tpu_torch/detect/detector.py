@@ -52,9 +52,10 @@ class DetectorParams:
 
 def detect_fn(family: str | TagFamily = "tagStandard41h12",
               params: DetectorParams | None = None,
-              device: str | torch.device = "cpu"):
+              device: str | torch.device | None = None):
     """Build ``f(frames) -> Detections``; the family tensors live on ``device``
-    and the frames must too."""
+    (``None``: the CUDA device) and the frames must too."""
+    device = resolve_device(device)
     fam = get_family(family) if isinstance(family, str) else family
     ft = FamilyTensors(fam, device=device)
     p = params or DetectorParams()

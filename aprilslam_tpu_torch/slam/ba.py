@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import jacrev, vmap
 
+from ..device import resolve_device
 from ..geometry import se3_exp, se3_inverse, tag_object_corners
 
 
@@ -57,7 +58,9 @@ class BAState:
 
 
 def ba_init(n_keyframes: int = 16, n_landmarks: int = 64, n_obs: int = 512,
-            dtype=torch.float32, device="cpu") -> BAState:
+            dtype=torch.float32, device=None) -> BAState:
+    """An empty BA state on ``device`` (``None``: the CUDA device)."""
+    device = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     return BAState(
         kf_pose=torch.eye(4, dtype=dtype, device=device).expand(n_keyframes, 4, 4).clone(),

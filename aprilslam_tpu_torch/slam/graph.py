@@ -16,6 +16,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..device import resolve_device
 from ..geometry import project_to_so3, se3_inverse
 
 NO_ANCHOR = 2**30
@@ -39,7 +40,9 @@ class GraphState:
         return int(self.local.shape[0])
 
 
-def init_graph(capacity: int = 64, dtype=torch.float32, device="cpu") -> GraphState:
+def init_graph(capacity: int = 64, dtype=torch.float32, device=None) -> GraphState:
+    """An empty graph on ``device`` (``None``: the CUDA device)."""
+    device = resolve_device(device)
     eye = torch.eye(4, dtype=dtype, device=device).expand(capacity, 4, 4).clone()
     return GraphState(
         local=eye,

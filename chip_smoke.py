@@ -7,12 +7,18 @@ Phases (any failed check exits non-zero):
 2. build the CCL kernel (csrc/ccl.cu) with nvcc for sm_90a;
 3. the kernel against its plain PyTorch version and a scipy oracle, bit for
    bit, on block-random, uniform, odd-sized, serpentine and rendered
-   main-path inputs; kernel and plain timed with CUDA events at 8x500x500;
+   main-path inputs and on stress inputs that cross tile borders
+   (checkerboard, stripes, staircase, 1x1, 1x501, 501x1, a batch of 32);
+   the kernel timed with CUDA events on four inputs (back-to-back eager
+   calls, as the main path makes them, and device time from a replayed CUDA
+   graph), the plain version on the main-path one, and each of the kernel's
+   launches with torch.profiler;
 4. the main path: render the default 5-tag scene at 1000x1000 on the card,
    cast to uint8, run the headline SLAM configuration in chunks of 8, and
    check ATE against the analytic ground truth, the valid rate, the kernel's
    launch count and that every output lives on the card;
-5. one JSON line per kernel, the card line, and a final JSON status line.
+5. the CCL timing line, one JSON line per kernel, the card line, and a
+   final JSON status line.
 """
 
 from __future__ import annotations
@@ -91,6 +97,47 @@ def block_random(rng, B, H, W, block=4) -> np.ndarray:
     return np.repeat(np.repeat(base, block, axis=1), block, axis=2)[:, :H, :W].copy()
 
 
+def stress_cases(rng) -> dict:
+    """Inputs that cross tile borders in every way: no same-colour neighbour
+    at all (checkerboard), one long component per column (1-pixel stripes),
+    diagonal bands that cross many tiles (staircase), frames narrower or
+    shorter than a tile or with W % 4 != 0, and a large batch."""
+    y, x = np.mgrid[:500, :500]
+    frames = lambda img: np.broadcast_to(img.astype(np.int8), (8, 500, 500)).copy()
+    return {
+        "checkerboard_8x500x500": frames((y + x) % 2),
+        "stripes_8x500x500": frames(x % 2),
+        "staircase_8x500x500": frames((x - y) % 16 < 2),
+        "pixel_random_2x1x1": rng.integers(-1, 2, size=(2, 1, 1)).astype(np.int8),
+        "pixel_random_2x1x501": rng.integers(-1, 2, size=(2, 1, 501)).astype(np.int8),
+        "pixel_random_2x501x1": rng.integers(-1, 2, size=(2, 501, 1)).astype(np.int8),
+        "block_random_2x37x501": block_random(rng, 2, 37, 501),
+        "block_random_32x500x500": block_random(rng, 32, 500, 500),
+    }
+
+
+def launch_split(fn, reps: int = 20) -> dict:
+    """Mean device ms of each of the kernel's launches per call, by kernel
+    name (torch.profiler)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        name = re.search(r"ccl_\w+", e.key)
+        if e.device_type == DeviceType.CUDA and name:
+            split[name.group(0)] = e.self_device_time_total / 1e3 / reps
+    return split or {"ccl": "not measured"}
+
+
 def time_cuda(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -101,6 +148,22 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cuda_graph(fn, reps: int = 20, replays: int = 20) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA graph
+    and replayed, so that the host's per-call overhead (allocation, ctypes,
+    launches: tens of microseconds) stays out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_cuda(graph.replay, replays) / reps
 
 
 def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
@@ -222,6 +285,8 @@ def main() -> int:
     cases["pixel_random_3x37x501"] = rng.integers(-1, 2, size=(3, 37, 501)).astype(np.int8)
     cases["serpentine_1x37x501"] = serpentine(37, 501)
     cases["serpentine_1x500x500"] = serpentine(500, 500)
+    cases["all_white_8x500x500"] = np.ones((8, 500, 500), np.int8)
+    cases.update(stress_cases(rng))
     for k in (0, len(chunks) - 1):
         cases[f"rendered_chunk{k}_8x500x500"] = trinary_of(chunks[k]).cpu().numpy()
     max_err = 0
@@ -238,12 +303,25 @@ def main() -> int:
         log(f"ccl {name}: kernel == plain == oracle ({len(np.unique(oracle))} labels)")
 
     main_trin = trinary_of(chunks[0]).contiguous()
-    kernel_ms = time_cuda(lambda: ccl.connected_components(main_trin), 200)
+    timed = {"rendered_chunk0_8x500x500": main_trin}
+    for name in ("block_random_8x500x500", "serpentine_1x500x500", "all_white_8x500x500"):
+        timed[name] = torch.as_tensor(cases[name], device=dev).contiguous()
+    # The byte bound: one int8 read and one int32 write per pixel.
+    # "ms": back-to-back eager calls, as the main path makes them;
+    # "device_ms": the card's time alone, from a replayed CUDA graph.
+    ccl_timing = {"card": card, "ms": {}, "device_ms": {}, "bound_ms": {}}
+    for name, t in timed.items():
+        ccl_timing["ms"][name] = time_cuda(lambda: ccl.connected_components(t), 200)
+        ccl_timing["device_ms"][name] = time_cuda_graph(lambda: ccl.connected_components(t))
+        ccl_timing["bound_ms"][name] = t.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    kernel_ms = ccl_timing["ms"]["rendered_chunk0_8x500x500"]
+    device_ms = ccl_timing["device_ms"]["rendered_chunk0_8x500x500"]
+    bound_ms = ccl_timing["bound_ms"]["rendered_chunk0_8x500x500"]
     plain_ms = time_cuda(lambda: ccl.connected_components_plain(main_trin), 5)
+    ccl_timing["launch_ms_rendered_chunk0"] = launch_split(lambda: ccl.connected_components(main_trin))
     Bm, Hm, Wm = main_trin.shape
-    bound_ms = Bm * Hm * Wm * (1 + 4) / HBM_BYTES_PER_S * 1e3
-    log(f"ccl timing {Bm}x{Hm}x{Wm}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms (bytes) [{card}]")
+    log(f"ccl timing {Bm}x{Hm}x{Wm}: kernel {kernel_ms:.4f} ms ({device_ms:.4f} ms on the card), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes) [{card}]")
 
     # ---- 4. main path -----------------------------------------------------
     slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, detector_params=params,
@@ -288,6 +366,7 @@ def main() -> int:
         "match": max_err == 0,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
@@ -297,6 +376,7 @@ def main() -> int:
         "frames": args.frames, "pool": "reference" if args.reference_pool else "monte_carlo_numpy",
         "ate": ate, "valid_rate": vrate, "n_invalid": n_invalid,
         "confidence": conf, "fps": fps, "breakdown": breakdown, "card": card}}))
+    log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,6 +11,8 @@ Without a CUDA device every test skips.
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 from scipy import ndimage
 
 from aprilslam_tpu_torch.ops import ccl
@@ -44,6 +46,33 @@ def serpentine(H, W):
     return t
 
 
+def stress_inputs(rng):
+    """Maps that cross tile borders in every way (as chip_smoke.py's)."""
+    y, x = np.mgrid[:500, :500]
+    frames = lambda img: np.broadcast_to(img.astype(np.int8), (8, 500, 500)).copy()
+    return [
+        frames((y + x) % 2),  # checkerboard: no same-colour neighbour
+        frames(x % 2),  # 1-pixel stripes: one component per column
+        frames((x - y) % 16 < 2),  # staircase: diagonal bands over many tiles
+        rng.integers(-1, 2, size=(2, 1, 1)).astype(np.int8),
+        rng.integers(-1, 2, size=(2, 1, 501)).astype(np.int8),
+        rng.integers(-1, 2, size=(2, 501, 1)).astype(np.int8),
+        block_image(rng, 2, 37, 501),  # W % 4 != 0
+        block_image(rng, 32, 500, 500),
+    ]
+
+
+def check_kernel(t: np.ndarray, device) -> None:
+    """Kernel == plain == oracle bit for bit, and one launch counted."""
+    tt = torch.as_tensor(t, device=device).contiguous()
+    before = ccl.ccl_launches
+    got = ccl.connected_components(tt)
+    torch.cuda.synchronize()
+    assert ccl.ccl_launches == before + 1
+    assert torch.equal(got, ccl.connected_components_plain(tt))
+    np.testing.assert_array_equal(got.cpu().numpy(), oracle(t))
+
+
 @pytest.fixture()
 def card():
     if not torch.cuda.is_available():
@@ -58,13 +87,23 @@ def test_kernel_matches_plain_and_oracle(card, seed):
     for t in (block_image(rng, 8, 500, 500), serpentine(500, 500),
               rng.integers(-1, 2, size=(3, 37, 501)).astype(np.int8),
               np.full((2, 64, 96), -1, np.int8), np.ones((1, 500, 500), np.int8)):
-        tt = torch.as_tensor(t, device=card)
-        before = ccl.ccl_launches
-        got = ccl.connected_components(tt)
-        torch.cuda.synchronize()
-        assert ccl.ccl_launches == before + 1
-        assert torch.equal(got, ccl.connected_components_plain(tt))
-        np.testing.assert_array_equal(got.cpu().numpy(), oracle(t))
+        check_kernel(t, card)
+
+
+@pytest.mark.cuda
+def test_kernel_on_stress_inputs(card):
+    for t in stress_inputs(np.random.default_rng(0)):
+        check_kernel(t, card)
+
+
+@pytest.mark.cuda
+@settings(max_examples=30, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(B=st.integers(1, 8), H=st.integers(1, 600), W=st.integers(1, 600),
+       block=st.integers(1, 40), seed=st.integers(0, 2**32 - 1))
+def test_kernel_on_random_shapes(card, B, H, W, block, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-1, 2, size=(B, -(-H // block), -(-W // block))).astype(np.int8)
+    check_kernel(np.repeat(np.repeat(base, block, axis=1), block, axis=2)[:, :H, :W].copy(), card)
 
 
 @pytest.mark.cuda

@@ -73,7 +73,7 @@ def test_update_graph_sequence():
               ([0, 5, 9], [0, 1, 1]), ([2, 5, 11], [1, 1, 1]), ([-1, -1, -1], [0, 0, 0])]
     with jax.enable_x64(False):
         js = JG.init_graph(16)
-    ts = TS.init_graph(16)
+    ts = TS.init_graph(16, device="cpu")
     for ids, ok in frames:
         ids = np.asarray(ids, np.int32)
         ok = np.asarray(ok, bool)

@@ -1,6 +1,5 @@
 """Pinhole camera model and OpenGL<->CV conventions
-(port of ``aprilslam_tpu/geometry/camera.py``; the lens-distortion helpers
-are not ported yet).
+(port of ``aprilslam_tpu/geometry/camera.py``).
 
 * Intrinsics derive from the renderer's vertical FOV: ``fx = fy =
   0.5 * height / tan(0.5 * fov_y)``, principal point at the image centre.
@@ -68,6 +67,65 @@ def unproject(pixels: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
     x = K_inv[0, 0] * pixels[..., 0] + K_inv[0, 2]
     y = K_inv[1, 1] * pixels[..., 1] + K_inv[1, 2]
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def _brown_conrady(dist, like: torch.Tensor):
+    """(k1, k2, p1, p2, k3) of an OpenCV coefficient vector, zero-padded to 5."""
+    d = torch.as_tensor(dist, dtype=like.dtype).to(like.device).reshape(-1)[:5]
+    d = torch.nn.functional.pad(d, (0, 5 - d.shape[0]))
+    return d[0], d[1], d[2], d[3], d[4]
+
+
+def distort_normalized(xn: torch.Tensor, dist) -> torch.Tensor:
+    """Apply Brown-Conrady distortion (OpenCV layout k1, k2, p1, p2[, k3]) to
+    normalized image coords (..., 2): radial terms up to r^6 plus tangential."""
+    k1, k2, p1, p2, k3 = _brown_conrady(dist, xn)
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xt = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yt = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([x * radial + xt, y * radial + yt], dim=-1)
+
+
+def undistort_normalized(xd: torch.Tensor, dist, iters: int = 10) -> torch.Tensor:
+    """Invert Brown-Conrady distortion by a fixed count of fixed-point steps
+    (..., 2), the compensation loop of cv2.undistortPoints: divide out the
+    radial factor and subtract the tangential shift at the current estimate."""
+    k1, k2, p1, p2, k3 = _brown_conrady(dist, xd)
+    x0, y0 = xd[..., 0], xd[..., 1]
+    x, y = x0, y0
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        inv = 1.0 / torch.where(torch.abs(radial) < 1e-6, 1e-6, radial)
+        xt = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        yt = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (x0 - xt) * inv, (y0 - yt) * inv
+    return torch.stack([x, y], dim=-1)
+
+
+def _pixel_map(fn, px: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Apply ``fn`` to pixels in normalized coordinates. The result is the
+    input plus the shift ``fn`` makes, scaled back to pixels, so that zero
+    coefficients return the pixels bit for bit (px -> normalized -> px
+    would not)."""
+    x = (px[..., 0] - K[0, 2]) / K[0, 0]
+    y = (px[..., 1] - K[1, 2]) / K[1, 1]
+    xn = torch.stack([x, y], dim=-1)
+    shift = fn(xn) - xn
+    return torch.stack([px[..., 0] + K[0, 0] * shift[..., 0], px[..., 1] + K[1, 1] * shift[..., 1]], dim=-1)
+
+
+def distort_pixels(px: torch.Tensor, K: torch.Tensor, dist) -> torch.Tensor:
+    """Ideal pinhole pixels (..., 2) -> observed (distorted) pixels."""
+    return _pixel_map(lambda xn: distort_normalized(xn, dist), px, K)
+
+
+def undistort_pixels(px: torch.Tensor, K: torch.Tensor, dist, iters: int = 10) -> torch.Tensor:
+    """Observed (distorted) pixels (..., 2) -> ideal pinhole pixels, the
+    cv2.undistortPoints(..., P=K) equivalent."""
+    return _pixel_map(lambda xn: undistort_normalized(xn, dist, iters=iters), px, K)
 
 
 def gl_point_to_cv(p_gl: torch.Tensor) -> torch.Tensor:

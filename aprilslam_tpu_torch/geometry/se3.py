@@ -155,10 +155,11 @@ def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    return torch.cat(
-        [torch.cat([R, t[..., None]], dim=-1), bottom.expand(batch + (1, 4))], dim=-2
-    )
+    # The [0, 0, 0, 1] row is built on the device from t: a host tensor
+    # copied over would cost a host sync on every call.
+    zero = torch.zeros_like(t[..., None, :])
+    bottom = torch.cat([zero, torch.ones_like(zero[..., :1])], dim=-1)
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
 
 
 def rotation(T: torch.Tensor) -> torch.Tensor:
@@ -213,6 +214,11 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     )
     V_inv = _eye(3, T, W.shape) - 0.5 * W + cot_term[..., None, None] * (W @ W)
     return torch.cat([w, torch.einsum("...ij,...j->...i", V_inv, translation(T))], dim=-1)
+
+
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B with broadcasting over batch axes."""
+    return A @ B
 
 
 def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from ..detect.decode import Detections, homography_from_corners
-from ..geometry import make_se3, se3_exp, so3_log, tag_object_corners
+from ..geometry import make_se3, se3_exp, so3_log, tag_object_corners, undistort_pixels
 
 
 def _ippe_rotations(H_obj: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
@@ -208,12 +208,13 @@ def poses_from_detections(
     Returns (T (B, D, 4, 4), ok (B, D), reproj_rms (B, D), seed_ok (B, D),
     T_alt (B, D, 4, 4)). ``ok`` combines detection validity, cheirality and
     reprojection quality; ``seed_ok`` additionally requires the pose to be
-    branch-reliable (gates map seeding)."""
+    branch-reliable (gates map seeding). With ``dist_coeffs`` (OpenCV k1,
+    k2, p1, p2[, k3]) the corners are undistorted first, so the pinhole PnP
+    is exact."""
+    corners = det.corners
     if dist_coeffs is not None:
-        raise NotImplementedError(
-            "dist_coeffs: lens-distortion compensation is not ported yet "
-            "(ROADMAP.md, section 1, item 12)")
-    res = solve_planar_pnp_dual(det.corners, K, tag_size, iters=iters)
+        corners = undistort_pixels(corners, torch.as_tensor(K, device=corners.device), dist_coeffs)
+    res = solve_planar_pnp_dual(corners, K, tag_size, iters=iters)
     ok = det.valid & (res.T[..., 2, 3] > 0) & (res.rms < max_reproj_px)
     sep = torch.linalg.norm(res.T[..., :3, :3] - res.T_alt[..., :3, :3], dim=(-2, -1))
     seed_ok = ok & ((res.ambiguity < ambiguity_max) | (sep < branch_sep_ok))

@@ -1,4 +1,4 @@
-from .config import SceneConfig, TagConfig, DEFAULT_SCENE
+from .config import SceneConfig, TagConfig, DEFAULT_SCENE, randomize_scene
 from .ground_truth import camera_to_tag_transforms, camera_in_tag_frames
 from .rasterizer import SceneTensors, scene_tensors, render_frames
 from . import trajectory
@@ -7,6 +7,7 @@ __all__ = [
     "SceneConfig",
     "TagConfig",
     "DEFAULT_SCENE",
+    "randomize_scene",
     "camera_to_tag_transforms",
     "camera_in_tag_frames",
     "SceneTensors",

@@ -133,3 +133,21 @@ class SceneConfig:
             tags=tuple(tags),
             family=str(raw.get("family", "tagStandard41h12")),
         )
+
+
+def randomize_scene(raw: dict, percentage: float = 0.1, seed: int | None = None) -> dict:
+    """Perturb every tag position/rotation by +-percentage (relative; absolute
+    for zero entries), drawing from ``np.random.default_rng(seed)`` in the
+    same order as the JAX package, so the same seed gives the same scene."""
+    rng = np.random.default_rng(seed)
+    out = json.loads(json.dumps(raw))
+
+    def rand_val(v: float) -> float:
+        if v == 0:
+            return float(rng.uniform(-percentage, percentage))
+        return float(v * (1.0 + rng.uniform(-percentage, percentage)))
+
+    for tag in out["tags"]:
+        tag["position"] = [rand_val(v) for v in tag["position"]]
+        tag["rotation"] = [rand_val(v) for v in tag["rotation"]]
+    return out

@@ -1,5 +1,5 @@
 """Sliding-window bundle adjustment with Schur-complement elimination
-(port of ``aprilslam_tpu/slam/ba.py``, dense coupling).
+(port of ``aprilslam_tpu/slam/ba.py``).
 
 * **State**: fixed-capacity keyframe ring, tag-landmark poses, and an
   observation ring.
@@ -10,10 +10,10 @@
   the 6x6 landmark blocks are eliminated by the Schur complement, and the
   reduced camera system is solved with Jacobi preconditioning. Damping is
   Marquardt-style and lambda persists in the state.
-
-The sparse coupling (``lm_obs_grid``/``schur_sparse``), which the reference
-picks once K*M > 4096, is not ported yet; the main path's K = M = 16 takes
-the dense branch.
+* **Coupling**: the reduced camera system is assembled either densely, from
+  a (K, M, 6, 6) W, or sparsely, from per-observation blocks grouped by
+  landmark (``lm_obs_grid``/``schur_sparse``); ``coupling="auto"`` picks the
+  sparse form once K*M > 4096.
 """
 
 from __future__ import annotations
@@ -79,11 +79,26 @@ def ba_init(n_keyframes: int = 16, n_landmarks: int = 64, n_obs: int = 512,
     )
 
 
-def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """dst with dst[idx] = vals, where idx == len(dst) entries are dropped."""
+def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """dst with dst[idx] = vals, where idx == len(dst) entries are dropped.
+
+    ``idx`` may have any shape (a 0-dim one writes one row) and ``vals``
+    broadcasts to it; a Python scalar is filled on the device, not copied
+    from the host."""
     pad = torch.cat([dst, dst[:1]])
-    pad[idx.long()] = vals.to(dst.dtype)
+    if isinstance(vals, torch.Tensor):
+        vals = vals.to(dst.dtype)
+    else:
+        vals = torch.full((), vals, dtype=dst.dtype, device=dst.device)
+    flat = idx.reshape(-1).long()
+    pad[flat] = vals.expand(idx.shape + dst.shape[1:]).reshape(flat.shape + dst.shape[1:])
     return pad[:-1]
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-dim index tensor already in range. Indexing with the
+    0-dim tensor itself would read it back to the host."""
+    return x.index_select(0, i.reshape(1).long())[0]
 
 
 def ba_add_frame(
@@ -206,11 +221,68 @@ def _solve_jacobi(Sd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return y * m
 
 
-def backsub_sparse(A, onehot_kf, onehot_lm, Hll_inv, bl, dc):
-    """Landmark back-substitution dl = -Hll_inv (bl + W^T dc), with
-    W_m^T dc = sum over observations o of m of A_o^T dc_{k_o}."""
-    dc_o = onehot_kf @ dc  # (O, 6)
-    Wtdc = onehot_lm.T @ torch.einsum("oab,oa->ob", A, dc_o)
+def lm_obs_grid(obs_lm: torch.Tensor, obs_ok: torch.Tensor, M: int, P: int):
+    """Group observation indices by landmark into a static (M, P) grid.
+
+    Returns ``(grid, overflow)``: ``grid[m, p]`` is the index of the p-th
+    observation of landmark m (sentinel O = empty, which gathers a zero
+    padding row) and ``overflow`` counts valid observations beyond P that
+    did not fit. Keyframes i and j interact only through landmarks both
+    observe, so the pair work is O(M P^2) instead of the dense O(K^2 M)."""
+    O = obs_lm.shape[0]
+    dev = obs_lm.device
+    key = torch.where(obs_ok, obs_lm, M).to(torch.int32)
+    order = torch.argsort(key, stable=True)
+    slm = key[order]
+    idx = torch.arange(O, device=dev)
+    is_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), slm[1:] != slm[:-1]])
+    run_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
+    rank = idx - run_start
+    valid = slm < M
+    m_idx = torch.where(valid & (rank < P), slm.long(), M)
+    p_idx = torch.clamp(rank, max=P - 1)
+    grid = torch.full((M + 1, P), O, dtype=torch.int32, device=dev)
+    grid[m_idx, p_idx] = order.to(torch.int32)
+    return grid[:M], (valid & (rank >= P)).sum()
+
+
+def schur_sparse(grid, A, obs_kf, obs_lm, Hll_inv, Hcc_d, bc, bl, K):
+    """Assemble the reduced camera system from per-observation coupling
+    blocks A_o = Jc_o^T Jl_o without materializing the (K, M, 6, 6) W:
+
+    S = blockdiag(Hcc_d) - sum_m sum_{p,q in obs(m)} A_p Hll_inv_m A_q^T
+    rhs = bc - sum_o A_o (Hll_inv_{m_o} bl_{m_o})
+
+    Invalid observations carry A_o = 0 (their Jacobians are weighted by the
+    ok mask). The pair blocks are scatter-added (``index_add_``), so on the
+    card their summation order, and the last bits of S, may vary."""
+    O = A.shape[0]
+    Mi, P = grid.shape
+    g = grid.long()
+    Ap = torch.cat([A, A.new_zeros((1, 6, 6))])  # zero padding row
+    kfp = torch.cat([obs_kf.long(), obs_kf.new_zeros((1,)).long()])
+    G = Ap[g]  # (M, P, 6, 6)
+    kf_g = torch.where(g < O, kfp[g], K)  # empty slots -> the dropped pad block
+    GH = torch.einsum("mpab,mbc->mpac", G, Hll_inv)
+    pair = torch.einsum("mpac,mqdc->mpqad", GH, G)  # (M, P, P, 6, 6)
+    ki = kf_g[:, :, None].expand(Mi, P, P)
+    kj = kf_g[:, None, :].expand(Mi, P, P)
+    flat = torch.where((ki < K) & (kj < K), ki * K + kj, K * K).reshape(-1)
+    S = A.new_zeros((K * K + 1, 6, 6)).index_add_(0, flat, -pair.reshape(-1, 6, 6))[:-1]
+    S = S.reshape(K, K, 6, 6)
+    diag_k = torch.arange(K, device=A.device)
+    S[diag_k, diag_k] += Hcc_d
+    Hb = torch.einsum("mab,mb->ma", Hll_inv, bl)  # (M, 6)
+    onehot_kf = F.one_hot(obs_kf.long(), K).to(A.dtype)
+    rhs = bc - onehot_kf.T @ torch.einsum("oab,ob->oa", A, Hb[obs_lm.long()])
+    return S, rhs
+
+
+def backsub_sparse(A, obs_kf, obs_lm, Hll_inv, bl, dc, M: int):
+    """Landmark back-substitution dl = -Hll_inv (bl + W^T dc) from
+    per-observation blocks: W_m^T dc = sum_{o in m} A_o^T dc_{k_o}."""
+    onehot_lm = F.one_hot(obs_lm.long(), M).to(A.dtype)
+    Wtdc = onehot_lm.T @ torch.einsum("oab,oa->ob", A, dc[obs_kf.long()])
     return -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdc)
 
 
@@ -221,16 +293,26 @@ def ba_optimize(
     iters: int = 8,
     huber_px: float = 4.0,
     coupling: str = "auto",
+    max_obs_per_lm: int = 0,
 ) -> BAState:
-    """Levenberg-Marquardt over keyframe + landmark poses (Schur-eliminated,
-    dense coupling). Lambda is read from and written back to the state."""
+    """Levenberg-Marquardt over keyframe + landmark poses (Schur-eliminated).
+    Lambda is read from and written back to the state.
+
+    ``coupling``: "dense" materializes the (K, M, 6, 6) W, "sparse" sums
+    per-observation Schur contributions grouped by landmark, "auto" picks
+    sparse once K*M > 4096. ``max_obs_per_lm`` caps the sparse grid's P
+    (0 = K, always enough for the keyframe ring: a landmark has at most one
+    observation per keyframe slot)."""
     K = state.n_keyframes
     M = state.n_landmarks
     if coupling == "auto":
         coupling = "sparse" if K * M > 4096 else "dense"
-    if coupling != "dense":
-        raise NotImplementedError(
-            "sparse Schur coupling is not ported yet (ROADMAP.md, section 1: sparse BA coupling)")
+    if coupling not in ("dense", "sparse"):
+        raise ValueError(f"coupling must be 'dense', 'sparse' or 'auto', not {coupling!r}")
+    use_sparse = coupling == "sparse"
+    if use_sparse:
+        # The observation pattern is fixed across LM iterations.
+        grid, _overflow = lm_obs_grid(state.obs_lm, state.obs_ok, M, max_obs_per_lm or K)
     dtype = state.kf_pose.dtype
     dev = state.kf_pose.device
     O = state.n_obs_capacity
@@ -276,15 +358,18 @@ def ba_optimize(
         cost0 = robust_cost(kf_pose, lm_pose)
         Hll_inv = torch.linalg.inv_ex(_damp_blocks(Hll, lam, lm_prior)).inverse  # (M, 6, 6)
         Hcc_d = _damp_blocks(Hcc, lam, kf_prior)
-        # Dense W: per-observation blocks summed into (K, M, 6, 6).
-        Wkm = torch.einsum("ok,om,oab->kmab", onehot_kf, onehot_lm, A)
-        WH = torch.einsum("kmab,mbc->kmac", Wkm, Hll_inv)
-        S = -torch.einsum("kmac,lmdc->klad", WH, Wkm)
-        S[diag_k, diag_k] += Hcc_d
-        rhs = bc - torch.einsum("kmab,mb->ka", WH, bl)
+        if use_sparse:
+            S, rhs = schur_sparse(grid, A, state.obs_kf, state.obs_lm, Hll_inv, Hcc_d, bc, bl, K)
+        else:
+            # Dense W: per-observation blocks summed into (K, M, 6, 6).
+            Wkm = torch.einsum("ok,om,oab->kmab", onehot_kf, onehot_lm, A)
+            WH = torch.einsum("kmab,mbc->kmac", Wkm, Hll_inv)
+            S = -torch.einsum("kmac,lmdc->klad", WH, Wkm)
+            S[diag_k, diag_k] += Hcc_d
+            rhs = bc - torch.einsum("kmab,mb->ka", WH, bl)
         Sd = S.permute(0, 2, 1, 3).reshape(K * 6, K * 6)
         dc = -_solve_jacobi(Sd, rhs.reshape(K * 6)).reshape(K, 6)
-        dl = backsub_sparse(A, onehot_kf, onehot_lm, Hll_inv, bl, dc)
+        dl = backsub_sparse(A, state.obs_kf, state.obs_lm, Hll_inv, bl, dc, M)
 
         kf_new = torch.where(state.kf_active[:, None, None], se3_exp(dc) @ kf_pose, kf_pose)
         lm_new = torch.where(state.lm_active[:, None, None], se3_exp(dl) @ lm_pose, lm_pose)

@@ -17,7 +17,16 @@ Phases (any failed check exits non-zero):
    cast to uint8, run the headline SLAM configuration in chunks of 8, and
    check ATE against the analytic ground truth, the valid rate, the kernel's
    launch count and that every output lives on the card;
-5. the CCL timing line, one JSON line per kernel, the card line, and a
+5. BASELINE config 2 (``bench.py``'s pgo leg): the randomized scene, the
+   two-lap loop of 96 frames at 1000x1000, the chunk-scheduled BA step with
+   the loop-closure back end off and then on; per leg an accuracy pass, two
+   timed passes (best of two), ATE, valid rate, loop edges, the kernel's
+   launches, and one step's host syncs, kernel launches and busy share;
+6. every other estimator and schedule for one chunk of the main-path frames
+   (``reference_chain``, ``chain_avg``, ``joint``, the frame schedule, zero
+   distortion coefficients against none), and the sparse BA coupling
+   against the dense one from the main path's final BA state;
+7. the CCL timing line, one JSON line per kernel, the card line, and a
    final JSON status line.
 """
 
@@ -30,6 +39,7 @@ import sys
 import time
 import warnings
 from collections import Counter
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +49,15 @@ HEADLINE = dict(
     estimator="ba", ba_schedule="chunk", graph_capacity=16, ba_keyframes=16,
     ba_obs=512, init_joint_iters=3, ba_chunk_iters=4, pnp_iters=3,
 )
+CONFIG2 = dict(estimator="ba", ba_schedule="chunk", graph_capacity=16, init_joint_iters=3,
+               ba_chunk_iters=4, pnp_iters=3)
+# bench.py:400-404, the two-lap loop of config 2
+WAYPOINTS = np.array([
+    [0.0, 0.0, 10.0], [60.0, 0.0, 10.0], [60.0, 2.0, 12.0],
+    [0.0, 0.0, 10.0], [2.0, 1.0, 11.0], [60.0, 0.0, 10.0],
+    [60.0, 2.0, 12.0], [0.0, 0.0, 10.0],
+])
+CONFIG2_FRAMES = 96
 BATCH = 8
 RES = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -166,6 +185,136 @@ def time_cuda_graph(fn, reps: int = 20, replays: int = 20) -> float:
     return time_cuda(graph.replay, replays) / reps
 
 
+def render_chunks(cfg, cam, traj, n: int, dev) -> list:
+    """uint8 frames of ``traj`` rendered on the card, in chunks of BATCH."""
+    from aprilslam_tpu_torch.sim import render_frames, scene_tensors
+
+    scene = scene_tensors(cfg, device=dev)
+    return [
+        torch.clamp(render_frames(scene, traj.positions[i:i + BATCH], traj.rotations[i:i + BATCH],
+                                  cam.inv_matrix, RES, RES, 2, device=dev) * 255.0, 0, 255
+                    ).to(torch.uint8)
+        for i in range(0, n, BATCH)
+    ]
+
+
+def check_outputs(outs, n: int, what: str) -> None:
+    for o in outs:
+        for name, v in vars(o).items():
+            check(v.device.type == "cuda", f"{what}: output {name} is on {v.device}")
+    poses = torch.cat([o.poses for o in outs])
+    valid = torch.cat([o.valid for o in outs])
+    check(poses.shape == (n, 4, 4), f"{what}: poses shape {tuple(poses.shape)}")
+    check(bool(torch.isfinite(poses[valid]).all()), f"{what}: non-finite pose on a valid frame")
+
+
+def config2_phase(params, dev, card: str) -> tuple[dict, dict]:
+    """BASELINE config 2, pgo off then on (``bench.py:381-462`` on the port).
+    Returns the report and the CCL launches of each leg's accuracy pass."""
+    from aprilslam_tpu_torch.eval import ate_eval
+    from aprilslam_tpu_torch.geometry import PinholeCamera
+    from aprilslam_tpu_torch.ops import ccl
+    from aprilslam_tpu_torch.sim import DEFAULT_SCENE, SceneConfig, randomize_scene, trajectory
+    from aprilslam_tpu_torch.slam import SlamSystem
+
+    with open(DEFAULT_SCENE) as f:
+        cfg = SceneConfig.from_dict(randomize_scene(json.load(f), 0.1, seed=7))
+    cam = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
+    traj = trajectory.scripted_waypoints(CONFIG2_FRAMES, WAYPOINTS)
+    chunks = render_chunks(cfg, cam, traj, CONFIG2_FRAMES, dev)
+    torch.cuda.synchronize()
+    out = {"frames": CONFIG2_FRAMES, "trajectory": "two-lap loop", "scene": "randomized(0.1, seed 7)",
+           "batch": BATCH, "res": RES, "card": card}
+    launches = {}
+    for pgo in (False, True):
+        leg = "pgo_on" if pgo else "pgo_off"
+        slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, detector_params=params, device=dev,
+                          pgo=pgo, **CONFIG2)
+        ccl.ccl_launches = 0
+        t0 = time.perf_counter()
+        outs = [slam.process(c) for c in chunks]  # accuracy pass, also the warm-up
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches[leg] = ccl.ccl_launches
+        check(launches[leg] == len(chunks), f"config 2 {leg}: ccl launches {launches[leg]} != {len(chunks)}")
+        check_outputs(outs, CONFIG2_FRAMES, f"config 2 {leg}")
+        ate, vrate, n_invalid, _conf = ate_eval(cfg, traj.positions, traj.rotations, outs)
+        loop_edges = int(outs[-1].loop_closures[-1])
+        dt = float("inf")
+        for _ in range(2):  # two timed passes, best of two, as bench.py does
+            t0 = time.perf_counter()
+            for c in chunks:
+                slam.process(c)
+            torch.cuda.synchronize()
+            dt = min(dt, time.perf_counter() - t0)
+        fps = CONFIG2_FRAMES / dt
+        breakdown = time_breakdown([chunks[-1]], cfg, cam, params, slam, 1e3 * BATCH / fps)
+        out[leg] = {"ate": ate, "valid_rate": vrate, "n_invalid": n_invalid, "loop_edges": loop_edges,
+                    "fps": fps, "first_pass_s": first_s, "ccl_launches_per_pass": launches[leg],
+                    "breakdown": breakdown}
+        log(f"config 2 {leg}: ATE {ate:.4f} su, valid {vrate:.4f}, loop edges {loop_edges}, "
+            f"{fps:.3f} fps, {breakdown['host_syncs']} host syncs and "
+            f"{breakdown['kernel_launches']} kernel launches per chunk [{card}]")
+        check(vrate >= 0.95, f"config 2 {leg}: valid rate {vrate} < 0.95")
+    check(out["pgo_on"]["ate"] < 1.0, f"config 2 pgo on: ATE {out['pgo_on']['ate']} >= 1.0 su")
+    check(out["pgo_on"]["loop_edges"] >= 1, "config 2 pgo on: no loop edge was minted")
+    out["fps_on_over_off"] = out["pgo_on"]["fps"] / out["pgo_off"]["fps"]
+    return out, launches
+
+
+def options_phase(chunk, cfg, cam, params, dev, headline_ba) -> dict:
+    """Every other estimator and schedule on one chunk of the main-path
+    frames, and the sparse BA coupling against the dense one."""
+    from aprilslam_tpu_torch.geometry import se3_exp
+    from aprilslam_tpu_torch.slam import ba_optimize, build_slam_step
+
+    res = {}
+    runs = {
+        "reference_chain": dict(HEADLINE, estimator="reference_chain"),
+        "chain_avg": dict(HEADLINE, estimator="chain_avg"),
+        "joint": dict(HEADLINE, estimator="joint"),
+        "ba_frame": dict(HEADLINE, ba_schedule="frame"),
+        "ba_chunk": dict(HEADLINE),
+        "ba_chunk_zero_dist": dict(HEADLINE, dist_coeffs=[0.0, 0.0, 0.0, 0.0, 0.0]),
+    }
+    outs = {}
+    for name, kw in runs.items():
+        step, init = build_slam_step(cfg.family, cam, cfg.tag_size_inner, detector_params=params,
+                                     device=dev, **kw)
+        t0 = time.perf_counter()
+        _state, outs[name] = step(init(), chunk)
+        torch.cuda.synchronize()
+        check_outputs([outs[name]], BATCH, name)
+        res[name] = {"valid": int(outs[name].valid.sum()), "s": time.perf_counter() - t0}
+    gap = float((outs["ba_chunk_zero_dist"].poses - outs["ba_chunk"].poses).abs().max())
+    res["zero_dist_max_pose_gap"] = gap
+    check(gap <= 1e-4, f"zero distortion moved the poses by {gap}")
+
+    # From the main path's converged map LM rejects every step, which would
+    # make the comparison vacuous: start from its landmarks moved by seeded
+    # noise (0.002 rad, 0.02 units) with the initial damping.
+    K = torch.as_tensor(cam.matrix, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    xi = torch.randn((headline_ba.n_landmarks, 6), generator=gen) * torch.tensor([0.002] * 3 + [0.02] * 3)
+    start = replace(headline_ba, lam=torch.full_like(headline_ba.lam, 1e-2), lm_pose=torch.where(
+        headline_ba.lm_active[:, None, None], se3_exp(xi.to(dev)) @ headline_ba.lm_pose, headline_ba.lm_pose))
+    dense = ba_optimize(start, K, cfg.tag_size_inner, iters=4, coupling="dense")
+    sparse = ba_optimize(start, K, cfg.tag_size_inner, iters=4, coupling="sparse")
+    res["ba_moved"] = float((dense.lm_pose - start.lm_pose)[start.lm_active].abs().max())
+    check(res["ba_moved"] > 1e-3, "the BA comparison took no step")
+    # The world gauge is held only by damping: compare relative to the anchor.
+    a = headline_ba.anchor.clamp(min=0)
+    rel = {n: torch.linalg.inv(s.lm_pose[a]) @ torch.cat([s.lm_pose[headline_ba.lm_active],
+                                                          s.kf_pose[headline_ba.kf_active]])
+           for n, s in (("dense", dense), ("sparse", sparse))}
+    res["sparse_vs_dense_max_gap"] = float((rel["sparse"] - rel["dense"]).abs().max())
+    res["sparse_vs_dense_max_gap_raw"] = float(torch.cat([
+        (sparse.lm_pose - dense.lm_pose).abs().flatten(), (sparse.kf_pose - dense.kf_pose).abs().flatten()]).max())
+    check(res["sparse_vs_dense_max_gap"] <= 1e-3,
+          f"sparse coupling differs from dense by {res['sparse_vs_dense_max_gap']}")
+    return res
+
+
 def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
     """Where a chunk's time goes: the detector and PnP alone (host clock,
     synchronised, mean over the chunks), one profiled step's kernel time,
@@ -261,12 +410,7 @@ def main() -> int:
     scene = scene_tensors(cfg, device=dev)
     traj = trajectory.reference_pool() if args.reference_pool else trajectory.monte_carlo(args.frames, seed=3)
     t0 = time.perf_counter()
-    chunks = [
-        torch.clamp(render_frames(scene, traj.positions[i:i + BATCH], traj.rotations[i:i + BATCH],
-                                  cam.inv_matrix, RES, RES, 2, device=dev) * 255.0, 0, 255
-                    ).to(torch.uint8)
-        for i in range(0, args.frames, BATCH)
-    ]
+    chunks = render_chunks(cfg, cam, traj, args.frames, dev)
     torch.cuda.synchronize()
     log(f"render: {args.frames} frames {RES}x{RES} in {time.perf_counter() - t0:.2f} s")
     params = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16, max_boundary=8192)
@@ -333,13 +477,7 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = ccl.ccl_launches
     check(launches == len(chunks), f"ccl launches {launches} != chunks {len(chunks)}")
-    for o in outs:
-        for name, v in vars(o).items():
-            check(v.device.type == "cuda", f"output {name} is on {v.device}")
-    poses = torch.cat([o.poses for o in outs])
-    valid = torch.cat([o.valid for o in outs])
-    check(poses.shape == (args.frames, 4, 4), f"poses shape {tuple(poses.shape)}")
-    check(bool(torch.isfinite(poses[valid]).all()), "non-finite pose on a valid frame")
+    check_outputs(outs, args.frames, "main path")
     ate, vrate, n_invalid, conf = ate_eval(cfg, traj.positions, traj.rotations, outs)
     log(f"main path: {args.frames} frames, ATE {ate:.4f} su, valid {vrate:.4f} "
         f"({n_invalid} invalid), confident {conf}, first pass {first_s:.2f} s")
@@ -354,14 +492,23 @@ def main() -> int:
     log(f"steady state: {fps:.3f} fps (batch {BATCH}, {RES}x{RES}) [{card}]")
     breakdown = time_breakdown(chunks, cfg, cam, params, slam, 1e3 * BATCH / fps)
     log(f"breakdown per chunk of {BATCH}: {json.dumps(breakdown)} [{card}]")
+    headline_ba = slam.ba_state
 
-    # ---- 5. report --------------------------------------------------------
+    # ---- 5. config 2 ------------------------------------------------------
+    config2, config2_launches = config2_phase(params, dev, card)
+
+    # ---- 6. the other estimators and schedules, the sparse coupling -------
+    options = options_phase(chunks[0], cfg, cam, params, dev, headline_ba)
+    log(f"options: {json.dumps(options)} [{card}]")
+
+    # ---- 7. report --------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
         "source": "aprilslam_tpu_torch/csrc/ccl.cu",
         "replaces": "aprilslam_tpu/ops/ccl_pallas.py:60",
         "launches": launches,
+        "launches_config2_per_pass": config2_launches,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -376,6 +523,8 @@ def main() -> int:
         "frames": args.frames, "pool": "reference" if args.reference_pool else "monte_carlo_numpy",
         "ate": ate, "valid_rate": vrate, "n_invalid": n_invalid,
         "confidence": conf, "fps": fps, "breakdown": breakdown, "card": card}}))
+    log(json.dumps({"config2": config2}))
+    log(json.dumps({"options": options, "card": card}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

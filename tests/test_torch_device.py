@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from aprilslam_tpu_torch.detect import detect_fn
-from aprilslam_tpu_torch.slam import ba_init, init_graph
+from aprilslam_tpu_torch.slam import ba_init, edges_init, init_graph, pgo_init, taggraph_init
 
 ENTRY_POINTS = {
     # The detector is built with no device, then run on a blank frame on the card.
@@ -14,6 +14,9 @@ ENTRY_POINTS = {
         torch.zeros((1, 96, 96), dtype=torch.uint8, device="cuda")).ids,
     "init_graph": lambda: init_graph(16).local,
     "ba_init": lambda: ba_init(16, 16, 64).kf_pose,
+    "pgo_init": lambda: pgo_init(8, 24, 16, 16).node_pose,
+    "taggraph_init": lambda: taggraph_init(16).count,
+    "edges_init": lambda: edges_init(8).T_meas,
 }
 
 

@@ -75,9 +75,13 @@ def test_entry_points_default_to_cuda():
     dict(dist_coeffs=np.zeros(5, np.float32)),
 ])
 def test_unported_options_raise(kwargs):
+    """Every option of the JAX step is ported: none of these raises any more,
+    and each builds the state the JAX package's ``init`` builds."""
     cam = PinholeCamera.from_fov(64, 64, 45.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_slam_step("tagStandard41h12", cam, 10.0, device="cpu", **kwargs)
+    _step, init = build_slam_step("tagStandard41h12", cam, 10.0, device="cpu", **kwargs)
+    # The default estimator is "joint", whose state is the graph alone (pgo
+    # needs estimator="ba" and is ignored otherwise, as in JAX).
+    assert type(init()).__name__ == "GraphState"
 
 
 def test_ccl_wrapper_dispatch():

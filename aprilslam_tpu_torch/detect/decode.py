@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..families import TagFamily
 from .quads import QuadCandidates
 
@@ -104,9 +105,11 @@ def bilinear_sample(image: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 
 class FamilyTensors:
-    """Device-side constants derived from a TagFamily (built once)."""
+    """Device-side constants derived from a TagFamily (built once);
+    ``device=None`` means the CUDA device."""
 
-    def __init__(self, family: TagFamily, device: str | torch.device = "cpu"):
+    def __init__(self, family: TagFamily, device: str | torch.device | None = None):
+        device = resolve_device(device)
         self.family = family
         tmpl, meta = family.codebook()
         self.templates = torch.as_tensor(tmpl, device=device)  # (4N, D)

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -35,6 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 ccl_launches = 0
 
 _lib = None
+# The service's handler threads may make the first call together: one
+# builds and loads the library, the others wait for it.
+_lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -78,12 +82,14 @@ def build_ccl(verbose: bool = False) -> tuple[Path, float]:
 def _library():
     global _lib
     if _lib is None:
-        lib_path, _ = build_ccl()
-        lib = ctypes.CDLL(str(lib_path))
-        lib.aprilslam_ccl.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.aprilslam_ccl.restype = ctypes.c_int
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                lib_path, _ = build_ccl()
+                lib = ctypes.CDLL(str(lib_path))
+                lib.aprilslam_ccl.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                lib.aprilslam_ccl.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 

@@ -48,3 +48,66 @@ def camera_in_tag_frames(
 ) -> torch.Tensor:
     """Camera pose in each tag's frame (..., T, 4, 4): the SLAM ground truth."""
     return se3_inverse(camera_to_tag_transforms(tag_pos, tag_rot_deg, cam_pos, cam_rot_deg))
+
+
+def tag_distances_from_camera(tag_pos: torch.Tensor, cam_pos: torch.Tensor) -> torch.Tensor:
+    """(..., T) Euclidean distances."""
+    return torch.linalg.norm(tag_pos - cam_pos[..., None, :], dim=-1)
+
+
+def tag_to_tag_distance(tag_pos: torch.Tensor, i: int, j: int) -> torch.Tensor:
+    """World distance between two tags."""
+    return torch.linalg.norm(tag_pos[i] - tag_pos[j], dim=-1)
+
+
+def closest_tag(tag_pos: torch.Tensor, cam_pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(index, distance) of the nearest tag, each (...,)."""
+    d = tag_distances_from_camera(tag_pos, cam_pos)
+    idx = torch.argmin(d, dim=-1)
+    return idx, torch.gather(d, -1, idx[..., None])[..., 0]
+
+
+def visibility_by_distance(
+    tag_pos: torch.Tensor, cam_pos: torch.Tensor, max_distance: float = 10.0
+) -> torch.Tensor:
+    """(..., T) bool visibility gate."""
+    return tag_distances_from_camera(tag_pos, cam_pos) <= max_distance
+
+
+def tags_unoccluded(
+    tag_pos: torch.Tensor,  # (T, 3) GL world
+    tag_rot_deg: torch.Tensor,  # (T, 3)
+    cam_pos: torch.Tensor,  # (B, 3)
+    inner_size: float,
+    outer_half: float,
+    eps: float = 1e-3,
+) -> torch.Tensor:
+    """(B, T) bool: no OTHER tag's rendered quad blocks the camera's view of
+    any of this tag's 5 sample points (inner-border corners + centre).
+
+    Segment-vs-quad intersection against every other tag's OUTER quad,
+    batched as one (B, T, 5, S, 3) tensor on the inputs' device."""
+    T = tag_pos.shape[0]
+    R_w_tag = tag_world_rotations(tag_rot_deg)  # (T, 3, 3)
+    half = inner_size / 2.0
+    local = torch.tensor(
+        [[-half, -half, 0.0], [half, -half, 0.0], [half, half, 0.0], [-half, half, 0.0], [0.0, 0.0, 0.0]],
+        dtype=tag_pos.dtype, device=tag_pos.device,
+    )  # (5, 3)
+    # Sample points on each tag, world frame: (T, 5, 3)
+    P = torch.einsum("tij,pj->tpi", R_w_tag, local) + tag_pos[:, None, :]
+    n = R_w_tag[:, :, 2]  # (S, 3) occluder plane normals
+    C = cam_pos  # (B, 3)
+    d = P[None, :, :, :] - C[:, None, None, :]  # (B, T, 5, 3)
+    num = torch.einsum("si,si->s", n, tag_pos)[None, :] - torch.einsum("si,bi->bs", n, C)  # (B, S)
+    den = torch.einsum("si,btpi->btps", n, d)  # (B, T, 5, S)
+    tau = num[:, None, None, :] / torch.where(torch.abs(den) < 1e-9, 1e-9, den)
+    hit = C[:, None, None, None, :] + tau[..., None] * d[:, :, :, None, :]  # (B, T, 5, S, 3)
+    # World -> occluder-local coordinates: R^T through the "sji" index order.
+    q = torch.einsum("sji,btpsj->btpsi", R_w_tag, hit - tag_pos[None, None, None, :, :])
+    inside = (torch.abs(q[..., 0]) <= outer_half) & (torch.abs(q[..., 1]) <= outer_half)
+    blocking = inside & (tau > eps) & (tau < 1.0 - eps) & (torch.abs(den) >= 1e-9)
+    # A tag never occludes itself.
+    not_self = ~torch.eye(T, dtype=torch.bool, device=tag_pos.device)[None, :, None, :]
+    blocked = torch.any((blocking & not_self).flatten(-2), dim=-1)  # (B, T)
+    return ~blocked

@@ -15,6 +15,7 @@ import torch
 
 from ..device import resolve_device
 from ..families import TagFamily, get_family
+from ..geometry import PinholeCamera
 from .config import SceneConfig
 from .ground_truth import camera_to_tag_transforms
 
@@ -133,3 +134,62 @@ def render_frames(
         for j in range(ss):
             acc = acc + sample_offset((j + 0.5) / ss, (i + 0.5) / ss)
     return acc / (ss * ss)
+
+
+def project_border_corners(
+    scene: SceneTensors,
+    cam_pos,  # (B, 3)
+    cam_rot,  # (B, 3)
+    K,  # (3, 3)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Analytic pixel positions of each tag's detected-border corners, on the
+    scene's device.
+
+    Returns (corners (B, T, 4, 2) in 'lb-rb-rt-lt' order, valid (B, T) bool):
+    the oracle the detector's corner output is held against."""
+    dev = scene.tag_pos.device
+    f32 = torch.float32
+    cam_pos = torch.as_tensor(cam_pos, dtype=f32, device=dev)
+    cam_rot = torch.as_tensor(cam_rot, dtype=f32, device=dev)
+    K = torch.as_tensor(K, dtype=f32, device=dev)
+    half = scene.inner_size / 2.0
+    local = torch.tensor(
+        [[-half, -half, 0.0], [half, -half, 0.0], [half, half, 0.0], [-half, half, 0.0]],
+        dtype=f32, device=dev,
+    )
+    T_cam_tag = camera_to_tag_transforms(scene.tag_pos, scene.tag_rot, cam_pos, cam_rot)
+    R = T_cam_tag[..., :3, :3]
+    t = T_cam_tag[..., :3, 3]
+    pts = torch.einsum("btij,cj->btci", R, local) + t[:, :, None, :]  # (B, T, 4, 3)
+    z = pts[..., 2]
+    uv = torch.stack(
+        [K[0, 0] * pts[..., 0] / z + K[0, 2], K[1, 1] * pts[..., 1] / z + K[1, 2]],
+        dim=-1,
+    )
+    valid = torch.all(z > scene.near_clip, dim=-1)
+    return uv, valid
+
+
+def render_sequence(
+    config: SceneConfig,
+    positions,
+    rotations,
+    camera: PinholeCamera | None = None,
+    batch: int = 8,
+    supersample: int = 2,
+    device: str | torch.device | None = None,
+):
+    """Iterator of rendered (batch, H, W) frame batches on ``device``
+    (``None``: the CUDA device, checked at the call); a trailing partial
+    batch is dropped."""
+    dev = resolve_device(device)
+    camera = camera or PinholeCamera.from_fov(
+        config.display_width, config.display_height, config.fov_y
+    )
+    scene = scene_tensors(config, device=dev)
+    n = (len(positions) // batch) * batch
+    return (
+        render_frames(scene, positions[s : s + batch], rotations[s : s + batch], camera.inv_matrix,
+                      camera.height, camera.width, supersample, device=dev)
+        for s in range(0, n, batch)
+    )

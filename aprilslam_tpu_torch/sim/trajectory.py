@@ -1,4 +1,5 @@
-"""Trajectory generators (port of ``aprilslam_tpu/sim/trajectory.py``).
+"""Trajectory generators: scripted, Monte Carlo, orbit and smoothed random
+walk (port of ``aprilslam_tpu/sim/trajectory.py``).
 
 Trajectories are (N, 3) GL-world positions + (N, 3) rotations [pitch, yaw,
 roll] in degrees, generated up front as numpy arrays.
@@ -73,3 +74,42 @@ def scripted_waypoints(n_frames: int, waypoints: np.ndarray) -> Trajectory:
     f = (s - i0)[:, None].astype(np.float32)
     pos = waypoints[i0] * (1 - f) + waypoints[i0 + 1] * f
     return Trajectory(pos, np.zeros((n_frames, 3), dtype=np.float32))
+
+
+def orbit(
+    n_frames: int,
+    center: np.ndarray = np.array([0.0, 0.0, -50.0]),
+    radius: float = 40.0,
+    yaw_tracking: bool = True,
+    sweep_deg: float = 60.0,
+) -> Trajectory:
+    """Arc around a scene centre, optionally yawing to face it: exercises
+    rotation handling and revisits."""
+    ang = np.radians(np.linspace(-sweep_deg / 2, sweep_deg / 2, n_frames, dtype=np.float32))
+    center = np.asarray(center, dtype=np.float32)
+    pos = np.stack(
+        [center[0] + radius * np.sin(ang), np.full_like(ang, center[1]), center[2] + radius * np.cos(ang)],
+        axis=-1,
+    )
+    rot = np.zeros((n_frames, 3), dtype=np.float32)
+    if yaw_tracking:
+        rot[:, 1] = np.degrees(ang)  # yaw toward the centre
+    return Trajectory(pos, rot)
+
+
+def smooth_random_walk(
+    n_frames: int,
+    bounds: np.ndarray = REFERENCE_BOUNDS,
+    smoothness: int = 30,
+    seed: int = 0,
+) -> Trajectory:
+    """Low-pass-filtered random walk inside bounds: a handheld-like sweep
+    with revisits. Numpy draws, so the same seed gives the JAX package's
+    positions bit for bit."""
+    rng = np.random.default_rng(seed)
+    raw = rng.uniform(bounds[:, 0], bounds[:, 1], size=(n_frames + 2 * smoothness, 3)).astype(np.float32)
+    kernel = np.hanning(2 * smoothness + 1)
+    kernel /= kernel.sum()
+    sm = np.stack([np.convolve(raw[:, i], kernel, mode="same") for i in range(3)], axis=-1)
+    sm = sm[smoothness : smoothness + n_frames]
+    return Trajectory(sm.astype(np.float32), np.zeros((n_frames, 3), dtype=np.float32))

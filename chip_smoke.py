@@ -26,16 +26,31 @@ Phases (any failed check exits non-zero):
    (``reference_chain``, ``chain_avg``, ``joint``, the frame schedule, zero
    distortion coefficients against none), and the sparse BA coupling
    against the dense one from the main path's final BA state;
-7. the CCL timing line, one JSON line per kernel, the card line, and a
+7. the apps, on the card in this process: the simulation CLI at the
+   scene's 1000x1000 with its defaults (64 frames of the random walk; its
+   fps against ``SlamSystem.process`` alone on the same frames), a ``--pgo``
+   orbit run, a checkpointed run and its ``--resume``; the SLAM service at
+   its defaults in a thread (poses against an in-process step, stats,
+   reset, a malformed request); and the installation verifier. The CCL
+   launches of the CLI run and of the service's requests are counted;
+8. the CCL timing line, one JSON line per kernel, the card line, and a
    final JSON status line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import csv
+import io
 import json
+import logging
+import os
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from collections import Counter
@@ -58,6 +73,7 @@ WAYPOINTS = np.array([
     [60.0, 2.0, 12.0], [0.0, 0.0, 10.0],
 ])
 CONFIG2_FRAMES = 96
+APPS_FRAMES = 64  # the simulation CLI's default --frames
 BATCH = 8
 RES = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -315,6 +331,183 @@ def options_phase(chunk, cfg, cam, params, dev, headline_ba) -> dict:
     return res
 
 
+def run_cli(argv: list, cwd: str) -> tuple[int, dict | None, float]:
+    """The port's simulation CLI in this process, from ``cwd`` (it writes
+    data/logs there). Returns (rc, summary JSON or None, wall seconds); its
+    log lines are echoed once it returns."""
+    from aprilslam_tpu_torch.apps.run_simulation import main as sim_main
+
+    old, out = os.getcwd(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(out):
+            rc = sim_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(old)
+        for h in logging.root.handlers[:]:
+            h.close()
+            logging.root.removeHandler(h)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[-4:]:
+        log(f"  cli| {line}")
+    try:
+        return rc, json.loads(lines[-1]), wall
+    except (IndexError, json.JSONDecodeError):
+        return rc, None, wall
+
+
+def apps_phase(main_chunks, dev, card: str) -> tuple[dict, int, int]:
+    """The apps on the card: the simulation CLI (fps against the step alone
+    on the same frames), its --pgo and checkpoint/resume runs, the service
+    against an in-process step, and the verifier. Returns the report and the
+    CCL launches of the CLI's main run and of the service's requests."""
+    from aprilslam_tpu_torch.apps import verify_install
+    from aprilslam_tpu_torch.apps.serve import SlamClient, make_server
+    from aprilslam_tpu_torch.detect import DetectorParams
+    from aprilslam_tpu_torch.geometry import PinholeCamera
+    from aprilslam_tpu_torch.ops import ccl
+    from aprilslam_tpu_torch.sim import SceneConfig, render_frames, scene_tensors, trajectory
+    from aprilslam_tpu_torch.slam import SlamSystem
+
+    out = {}
+    cfg = SceneConfig.from_file()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the CLI at its defaults: 64 frames of the walk, batch 8, ba.
+        frames_n = APPS_FRAMES
+        ccl.ccl_launches = 0
+        rc, summary, wall = run_cli(["--frames", str(frames_n), "--batch", str(BATCH), "--estimator", "ba",
+                                     "--trajectory", "walk", "--headless", "--output-dir", "csv",
+                                     "--device", dev.type], tmp)
+        launches_cli = ccl.ccl_launches
+        check(rc == 0 and summary is not None, f"apps: the CLI returned {rc}")
+        check(summary["ate_rmse_su"] < 1.8, f"apps: CLI ATE {summary['ate_rmse_su']} >= 1.8 su")
+        check(launches_cli == frames_n // BATCH, f"apps: CLI ccl launches {launches_cli} != {frames_n // BATCH}")
+        rows = {}
+        for name in ("slam_simulation_data.csv", "error_analysis.csv", "covariance_analysis.csv"):
+            with open(os.path.join(tmp, "csv", name)) as f:
+                rows[name] = len(list(csv.DictReader(f)))
+            check(rows[name] > 0, f"apps: {name} has no data rows")
+        # The same frames through SlamSystem.process alone, built as the CLI builds it.
+        res = cfg.display_width
+        cam = PinholeCamera.from_fov(res, res, cfg.fov_y)
+        traj = trajectory.smooth_random_walk(frames_n, seed=0)
+        scene = scene_tensors(cfg, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = [render_frames(scene, traj.positions[i:i + BATCH], traj.rotations[i:i + BATCH],
+                                cam.inv_matrix, res, res, 2, device=dev) for i in range(0, frames_n, BATCH)]
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        cap = max(16, -(-(max(cfg.tag_ids()) + 2) // 8) * 8)
+        cli_params = DetectorParams(quad_decimate=2, min_cluster_pts=12)
+        slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, estimator="ba",
+                          detector_params=cli_params, graph_capacity=cap, device=dev)
+        t0 = time.perf_counter()
+        for f in frames:
+            slam.process(f)
+        torch.cuda.synchronize()
+        process_s = time.perf_counter() - t0
+        out["sim_cli"] = {
+            "frames": frames_n, "summary": summary, "rc": rc, "csv_rows": rows,
+            "ccl_launches": launches_cli, "cli_fps": summary["fps"], "cli_wall_s": wall,
+            "process_fps": frames_n / process_s, "render_s": render_s,
+        }
+        # One more step's host syncs on the last chunk. No profiled step as in
+        # phases 4 and 5: at this step's launch count the profiler takes minutes.
+        syncs = host_syncs(slam, frames[-1])
+        out["sim_cli"]["host_syncs"] = sum(syncs.values())
+        out["sim_cli"]["top_sync_lines"] = syncs.most_common(8)
+        log(f"apps cli: {json.dumps(summary)}; CLI {summary['fps']} fps incl. host loop "
+            f"(wall {wall:.2f} s), process alone {frames_n / process_s:.3f} fps, render {render_s:.2f} s; "
+            f"step {out['sim_cli']['host_syncs']} host syncs per chunk [{card}]")
+
+        # The --pgo orbit run, and a checkpointed run then its --resume.
+        runs = {
+            "pgo_orbit": ["--pgo", "--trajectory", "orbit", "--frames", "32"],
+            "checkpoint": ["--checkpoint-dir", "ckpt", "--checkpoint-every", "8", "--frames", "16"],
+            "resume": ["--checkpoint-dir", "ckpt", "--checkpoint-every", "8", "--frames", "16", "--resume"],
+        }
+        for name, extra in runs.items():
+            rc, summary, wall = run_cli(extra + ["--headless", "--output-dir", f"csv_{name}",
+                                                 "--device", dev.type], tmp)
+            check(rc == 0, f"apps: CLI {name} returned {rc}")
+            out[name] = {"rc": rc, "summary": summary, "wall_s": wall}
+
+    # (b) the service at its defaults, in a thread, on a free port.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cam = PinholeCamera.from_fov(RES, RES, 45.0)
+    srv = make_server("127.0.0.1", port, cam, "tagStandard41h12", 10.0, BATCH, RES, 1, device=dev)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        cli = SlamClient(port=port)
+        check(cli.ping() == {"ok": True, "shape": [BATCH, RES, RES]}, "apps: serve ping")
+        u8 = [c.cpu().numpy() for c in main_chunks[:3]]
+        ccl.ccl_launches = 0
+        reps = [cli.process(c) for c in u8]
+        stats = cli.stats()
+        reset_ok = cli.reset()["ok"]
+        again = cli.process(u8[0])
+        launches_serve = ccl.ccl_launches
+        bad = cli._call({"cmd": "process", "shape": [BATCH, RES, RES]}, b"\0" * 10)
+        cli.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    check(all(r["ok"] for r in reps + [again]), "apps: a serve request failed")
+    check(launches_serve == len(reps) + 1, f"apps: serve ccl launches {launches_serve} != {len(reps) + 1}")
+    check(reset_ok and stats["requests"] == len(reps), f"apps: serve stats {stats}")
+    check(not bad["ok"] and "payload" in bad["error"], f"apps: malformed request answered {bad}")
+    ref = SlamSystem(cam, "tagStandard41h12", 10.0, estimator="ba", ba_schedule="chunk", device=dev)
+    gap, step_ms = 0.0, []
+    for rep, c in zip(reps, u8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ref.process(c)
+        poses, valid = o.poses.cpu().numpy(), o.valid.cpu().numpy()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(np.asarray(rep["valid"]), valid), "apps: serve validity != in-process step")
+        gap = max(gap, float(np.abs(np.asarray(rep["poses"])[valid] - poses[valid]).max(initial=0.0)))
+    reset_gap = float(np.abs(np.asarray(again["poses"]) - np.asarray(reps[0]["poses"])).max())
+    check(gap <= 1e-3, f"apps: serve poses differ from the in-process step by {gap}")
+    check(reset_gap <= 1e-3, f"apps: poses after reset differ by {reset_gap}")
+    out["serve"] = {
+        "batch": BATCH, "res": RES, "compile_s": stats["compile_s"], "requests": stats["requests"],
+        "latency_ms": [r["latency_ms"] for r in reps], "in_process_step_ms": step_ms,
+        "max_pose_gap": gap, "reset_max_pose_gap": reset_gap, "ccl_launches": launches_serve,
+        "valid": [int(np.sum(r["valid"])) for r in reps], "malformed_error": bad["error"],
+    }
+    syncs = host_syncs(ref, u8[-1])
+    out["serve"]["host_syncs"] = sum(syncs.values())
+    out["serve"]["top_sync_lines"] = syncs.most_common(8)
+    log(f"apps serve: latency {out['serve']['latency_ms']} ms against the in-process step "
+        f"{[round(x, 1) for x in step_ms]} ms, pose gap {gap:.2e}, after reset {reset_gap:.2e}, "
+        f"warm-up {stats['compile_s']} s; step {out['serve']['host_syncs']} host syncs per chunk [{card}]")
+
+    # (c) the verifier on the card.
+    rc = verify_install.main([])
+    check(rc == 0, f"apps: verify_install returned {rc}")
+    out["verify_install_rc"] = rc
+    return out, launches_cli, launches_serve
+
+
+def host_syncs(slam, chunk) -> Counter:
+    """Host syncs of one step, counted by the line of the port that made them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        slam.process(chunk)
+    torch.cuda.set_sync_debug_mode("default")
+    return Counter(f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
+                   for w in caught if "synchroniz" in str(w.message))
+
+
 def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
     """Where a chunk's time goes: the detector and PnP alone (host clock,
     synchronised, mean over the chunks), one profiled step's kernel time,
@@ -348,14 +541,7 @@ def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
     kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    # Host syncs of one step, counted by the line of the port that made them.
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        slam.process(chunks[0])
-    torch.cuda.set_sync_debug_mode("default")
-    syncs = Counter(f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
-                    for w in caught if "synchroniz" in str(w.message))
+    syncs = host_syncs(slam, chunks[0])
     return {
         "step_ms": step_ms,
         "detect_ms": detect_ms,
@@ -501,7 +687,13 @@ def main() -> int:
     options = options_phase(chunks[0], cfg, cam, params, dev, headline_ba)
     log(f"options: {json.dumps(options)} [{card}]")
 
-    # ---- 7. report --------------------------------------------------------
+    # ---- 7. the apps -------------------------------------------------------
+    t0 = time.perf_counter()
+    apps, launches_cli, launches_serve = apps_phase(chunks, dev, card)
+    apps["phase_s"] = time.perf_counter() - t0
+    log(f"apps phase: {apps['phase_s']:.1f} s")
+
+    # ---- 8. report --------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -509,6 +701,8 @@ def main() -> int:
         "replaces": "aprilslam_tpu/ops/ccl_pallas.py:60",
         "launches": launches,
         "launches_config2_per_pass": config2_launches,
+        "launches_sim_cli": launches_cli,
+        "launches_serve": launches_serve,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -525,6 +719,7 @@ def main() -> int:
         "confidence": conf, "fps": fps, "breakdown": breakdown, "card": card}}))
     log(json.dumps({"config2": config2}))
     log(json.dumps({"options": options, "card": card}))
+    log(json.dumps({"apps": apps, "card": card}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

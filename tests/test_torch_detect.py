@@ -200,7 +200,7 @@ def test_axis_aligned_square_keeps_all_sides(side):
 
 def test_family_tensors():
     fj = JD.FamilyTensors(get_family("tagStandard41h12"))
-    ft = TD.FamilyTensors(t_get_family("tagStandard41h12"))
+    ft = TD.FamilyTensors(t_get_family("tagStandard41h12"), device="cpu")
     for k in ("templates", "meta", "sample_pts", "mask_flat", "black_flat", "white_flat", "mask_idx"):
         np.testing.assert_array_equal(getattr(ft, k).numpy(), np.asarray(getattr(fj, k)), err_msg=k)
     assert (ft.n_codes, ft.d_bits) == (fj.n_codes, fj.d_bits)
@@ -209,7 +209,7 @@ def test_family_tensors():
 def test_decode_same_quads(ref):
     q = ref.quads
     tq = TQ.QuadCandidates(t(q.corners), t(q.valid), t(q.fit_err), t(q.cluster_size))
-    ft = TD.FamilyTensors(t_get_family(ref.cfg.family))
+    ft = TD.FamilyTensors(t_get_family(ref.cfg.family), device="cpu")
     got = TD.decode_quads(t(ref.gray), tq, ft, max_hamming=PARAMS.max_hamming,
                           min_level_contrast=PARAMS.min_level_contrast,
                           max_detections=PARAMS.max_detections)

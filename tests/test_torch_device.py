@@ -2,10 +2,14 @@
 run on the card, and where there is none they raise instead of falling back
 to the CPU."""
 
+import numpy as np
 import pytest
 import torch
 
-from aprilslam_tpu_torch.detect import detect_fn
+from aprilslam_tpu_torch.detect import FamilyTensors, detect_fn
+from aprilslam_tpu_torch.families import get_family
+from aprilslam_tpu_torch.geometry import PinholeCamera
+from aprilslam_tpu_torch.sim import SceneConfig, render_sequence
 from aprilslam_tpu_torch.slam import ba_init, edges_init, init_graph, pgo_init, taggraph_init
 
 ENTRY_POINTS = {
@@ -17,6 +21,11 @@ ENTRY_POINTS = {
     "pgo_init": lambda: pgo_init(8, 24, 16, 16).node_pose,
     "taggraph_init": lambda: taggraph_init(16).count,
     "edges_init": lambda: edges_init(8).T_meas,
+    "FamilyTensors": lambda: FamilyTensors(get_family("tagStandard41h12")).templates,
+    # The device is checked when the sequence is asked for, before any batch.
+    "render_sequence": lambda: next(render_sequence(
+        SceneConfig.from_file(), np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
+        camera=PinholeCamera.from_fov(64, 64, 45.0), batch=1)),
 }
 
 

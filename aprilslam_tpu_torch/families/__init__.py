@@ -86,11 +86,19 @@ class TagFamily:
         uu, vv = np.meshgrid(u, u, indexing="xy")
         return np.stack([uu, vv], axis=-1)
 
+    def render(self, tag_id: int, px_per_cell: int = 16) -> np.ndarray:
+        """Render a tag id to a grayscale uint8 image (canonical rotation)."""
+        grid = self.grids[tag_id].astype(np.uint8) * 255
+        return np.kron(grid, np.ones((px_per_cell, px_per_cell), dtype=np.uint8))
+
 
 def _load(name: str) -> TagFamily:
     path = os.path.join(_DATA_DIR, f"{name}.npz")
     if not os.path.exists(path):
-        raise ValueError(f"Unknown tag family '{name}'. Built-ins: {list_families()}")
+        raise ValueError(
+            f"Unknown tag family '{name}'. Built-ins: {list_families()}; "
+            "custom families can be registered via register_family()."
+        )
     z = np.load(path)
     return TagFamily(
         name=str(z["name"]),
@@ -102,10 +110,27 @@ def _load(name: str) -> TagFamily:
     )
 
 
+_REGISTRY: dict[str, TagFamily] = {}
+
+
+def register_family(family: TagFamily) -> TagFamily:
+    """Make ``family`` available to :func:`get_family` under its name; a
+    registered name shadows a built-in one."""
+    _REGISTRY[family.name] = family
+    return family
+
+
 @lru_cache(maxsize=None)
-def get_family(name: str) -> TagFamily:
+def _get_builtin(name: str) -> TagFamily:
     return _load(name)
 
 
+def get_family(name: str) -> TagFamily:
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    return _get_builtin(name)
+
+
 def list_families() -> list[str]:
-    return sorted(f[:-4] for f in os.listdir(_DATA_DIR) if f.endswith(".npz"))
+    builtin = [f[:-4] for f in os.listdir(_DATA_DIR) if f.endswith(".npz")]
+    return sorted(set(builtin) | set(_REGISTRY))

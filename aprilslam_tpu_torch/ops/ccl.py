@@ -60,10 +60,10 @@ def build_ccl(verbose: bool = False) -> tuple[Path, float]:
     lib_path = BUILD_DIR / f"ccl_{digest}.so"
     if lib_path.exists():
         return lib_path, 0.0
+    cmd = [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, str(SOURCE)]

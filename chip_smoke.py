@@ -33,8 +33,17 @@ Phases (any failed check exits non-zero):
    its defaults in a thread (poses against an in-process step, stats,
    reset, a malformed request); and the installation verifier. The CCL
    launches of the CLI run and of the service's requests are counted;
-8. the CCL timing line, one JSON line per kernel, the card line, and a
-   final JSON status line.
+8. BASELINE config 4, the real-camera path (``bench.py:525-584``): the
+   native runtime (built with g++ beside the kernel in phase 2) and its CPU
+   rasterizer against the card's; Zhang calibration on the card (the
+   distorted views of ``tests/test_calib.py`` against their truth, then the
+   config-4 camera, saved as the app's ``.npz``); the 64-frame 640x480 Y4M
+   clip rendered on the card and replayed through the native reader,
+   batched detection and PnP (a warm-up pass kept for accuracy, a timed
+   pass); the video app in process on that clip and calibration; and a
+   generated 1024-code family against the built-in one on 8 headline poses;
+9. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
+   per kernel, the card line, and a final JSON status line.
 """
 
 from __future__ import annotations
@@ -77,6 +86,10 @@ APPS_FRAMES = 64  # the simulation CLI's default --frames
 BATCH = 8
 RES = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# The port's median translation error (scene units) over the config-4
+# clip's ok tag poses, on the JAX-rendered frames on the CPU
+# (tests/parity_config4.py; the JAX package gives 0.1283475, 162 poses each).
+CONFIG4_CPU_T_ERR_MEDIAN = 0.12829819321632385
 
 
 def log(msg: str) -> None:
@@ -497,6 +510,246 @@ def apps_phase(main_chunks, dev, card: str) -> tuple[dict, int, int]:
     return out, launches_cli, launches_serve
 
 
+def distorted_views(K: np.ndarray, k1: float, k2: float, obj: np.ndarray, w: int, h: int,
+                    seed: int, n: int = 8) -> list:
+    """``tests/test_calib.py``'s synthetic views: a board at random poses
+    (drawn in its order from ``default_rng(seed)``) through ``K`` and radial
+    distortion, kept when the board lies in front and inside the image."""
+    from aprilslam_tpu_torch.geometry import se3_exp
+
+    rng = np.random.default_rng(seed)
+    views = []
+    while len(views) < n:
+        xi = np.r_[rng.normal(scale=0.25, size=3), rng.normal(scale=40, size=2), 0]
+        T = se3_exp(torch.as_tensor(xi)).numpy()
+        T[:3, 3] += [0, 0, rng.uniform(420, 700)]
+        p = obj @ T[:3, :3].T + T[:3, 3]
+        if p[:, 2].min() < 50:
+            continue
+        xy = p[:, :2] / p[:, 2:3]
+        r2 = np.sum(xy**2, axis=-1, keepdims=True)
+        xyd = xy * (1 + k1 * r2 + k2 * r2**2)
+        uv = np.stack([K[0, 0] * xyd[:, 0] + K[0, 2], K[1, 1] * xyd[:, 1] + K[1, 2]], axis=-1)
+        if uv.min() < 5 or uv[:, 0].max() > w - 5 or uv[:, 1].max() > h - 5:
+            continue
+        views.append(uv.astype(np.float32))
+    return views
+
+
+def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[dict, dict, torch.Tensor]:
+    """BASELINE config 4, the real-camera path: the native runtime, Zhang
+    calibration on the card, the 640x480 Y4M replay of ``bench.py:525-584``
+    (native reader -> batched detect -> PnP), the video app in process on
+    the calibration it wrote, and a generated 1024-code family. Returns the
+    report, the CCL launches of each run, and the replay's first trinary map
+    (8x240x320) for the kernel's timing."""
+    from aprilslam_tpu_torch.apps import video_detection
+    from aprilslam_tpu_torch.calib import board_points, calibrate_camera
+    from aprilslam_tpu_torch.detect import DetectorParams, TagDetector
+    from aprilslam_tpu_torch.detect.threshold import adaptive_threshold_with_levels, decimate, to_grayscale
+    from aprilslam_tpu_torch.families.generate import generate_family
+    from aprilslam_tpu_torch.geometry import PinholeCamera
+    from aprilslam_tpu_torch.ops import ccl
+    from aprilslam_tpu_torch.pose import poses_from_detections
+    from aprilslam_tpu_torch.runtime import Y4MReader, render_frames_native
+    from aprilslam_tpu_torch.sim import (SceneConfig, camera_to_tag_transforms, render_frames,
+                                         scene_tensors, trajectory)
+
+    out = {"card": card, "runtime_build_s": runtime_build_s}
+    cfg = SceneConfig.from_file()
+    scene = scene_tensors(cfg, device=dev)
+
+    # (a) the native CPU rasterizer against the card's, tests/test_runtime.py's bounds.
+    cam256 = PinholeCamera.from_fov(256, 256, cfg.fov_y)
+    pos = np.asarray([[0.0, 0.0, 10.0], [6.0, 2.0, -4.0]], np.float32)
+    rot = np.asarray([[0.0, 0.0, 0.0], [3.0, -5.0, 2.0]], np.float32)
+    t0 = time.perf_counter()
+    native = render_frames_native(scene, pos, rot, cam256, 256, 256, supersample=1)
+    native_s = time.perf_counter() - t0
+    card_img = render_frames(scene, pos, rot, cam256.inv_matrix, 256, 256, 1, device=dev).cpu().numpy()
+    diff = np.abs(native - card_img)
+    out["rasterizer"] = {"share_off_by_half": float((diff > 0.5).mean()), "mean_abs_diff": float(diff.mean()),
+                         "native_s": native_s}
+    check(out["rasterizer"]["share_off_by_half"] < 0.002 and out["rasterizer"]["mean_abs_diff"] < 0.01,
+          f"config 4: native rasterizer differs from the card's: {out['rasterizer']}")
+
+    # (b) calibration on the card: tests/test_calib.py's distorted views, then
+    # undistorted views through the config-4 camera, saved for the app.
+    obj = board_points(10, 7, 25.0)
+    K_true = np.array([[820.0, 0, 315.0], [0, 825.0, 245.0], [0, 0, 1]])
+    views = distorted_views(K_true, -0.12, 0.035, obj, 640, 480, seed=11)
+    t0 = time.perf_counter()
+    res = calibrate_camera(obj, views, iters=40, device=dev)
+    calib_s = time.perf_counter() - t0
+    out["calib_distorted"] = {"K": res.camera_matrix.tolist(), "dist": res.dist_coeffs.tolist(),
+                              "mean_reprojection_error": res.mean_reprojection_error,
+                              "quality": res.quality, "s": calib_s}
+    check(res.mean_reprojection_error < 0.1 and np.abs(res.camera_matrix - K_true).max() < 4.0
+          and abs(res.dist_coeffs[0] + 0.12) < 0.02 and abs(res.dist_coeffs[1] - 0.035) < 0.03,
+          f"config 4: calibration missed the truth: {out['calib_distorted']}")
+    W4, H4 = 640, 480
+    cam = PinholeCamera.from_fov(W4, H4, cfg.fov_y)
+    t0 = time.perf_counter()
+    res4 = calibrate_camera(obj, distorted_views(cam.matrix.astype(np.float64), 0.0, 0.0, obj, W4, H4, seed=4),
+                            device=dev)
+    out["calib_config4"] = {"K": res4.camera_matrix.tolist(), "dist": res4.dist_coeffs.tolist(),
+                            "mean_reprojection_error": res4.mean_reprojection_error,
+                            "quality": res4.quality, "s": time.perf_counter() - t0}
+    check(np.abs(res4.camera_matrix - cam.matrix).max() < 1.0 and res4.mean_reprojection_error < 0.01,
+          f"config 4: calibration of the config-4 camera missed: {out['calib_config4']}")
+    log(f"config 4 calibration: distorted views {res.camera_matrix[[0, 1, 0, 1], [0, 1, 2, 2]].round(3).tolist()} "
+        f"k {res.dist_coeffs[:2].round(5).tolist()} err {res.mean_reprojection_error:.4f} px "
+        f"{res.quality} in {calib_s:.2f} s; config-4 camera err {res4.mean_reprojection_error:.5f} px "
+        f"in {out['calib_config4']['s']:.2f} s [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "camera_calibration_parameters.npz")
+        res4.save_npz(npz)
+        # (c) the clip: bench.py:538-556, rendered on the card.
+        n_frames = 64
+        traj = trajectory.scripted_waypoints(n_frames, np.array([[0.0, 0.0, 20.0], [8.0, 2.0, 5.0],
+                                                                 [0.0, -2.0, 15.0]]))
+        frames = torch.clamp(render_frames(scene, traj.positions, traj.rotations, cam.inv_matrix, H4, W4, 2,
+                                           device=dev) * 255.0, 0, 255).to(torch.uint8).cpu().numpy()
+        clip = os.path.join(tmp, "bench_clip.y4m")
+        with open(clip, "wb") as f:
+            f.write(f"YUV4MPEG2 W{W4} H{H4} F30:1 Cmono\n".encode())
+            for fr in frames:
+                f.write(b"FRAME\n" + fr.tobytes())
+
+        # (d) the replay, as bench.py:563-581: a warm-up pass that also
+        # keeps the poses for accuracy, then a timed pass.
+        params = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16)
+        detector = TagDetector(cfg.family, params, device=dev)
+        K = torch.as_tensor(cam.matrix, device=dev)
+
+        def replay(keep=None):
+            n, dets = 0, 0
+            with Y4MReader(clip) as r:
+                while True:
+                    b = r.read_batch(BATCH)
+                    if b.shape[0] == 0:
+                        break
+                    det = detector.detect(torch.from_numpy(b).to(dev))
+                    T, okp, _rms, _seed, _alt = poses_from_detections(det, K, cfg.tag_size_inner)
+                    dets += int(okp.sum())
+                    if keep is not None:
+                        keep.append((n, det.ids.cpu().numpy(), T.cpu().numpy(), okp.cpu().numpy()))
+                    n += int(b.shape[0])
+            return n, dets
+
+        kept = []
+        ccl.ccl_launches = 0
+        replay(kept)
+        launches_warm = ccl.ccl_launches
+        torch.cuda.synchronize()
+        ccl.ccl_launches = 0
+        t0 = time.perf_counter()
+        n, dets = replay()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches_replay = ccl.ccl_launches
+        gt = camera_to_tag_transforms(scene.tag_pos.cpu(), scene.tag_rot.cpu(), torch.as_tensor(traj.positions),
+                                      torch.as_tensor(traj.rotations)).numpy()
+        index = {int(t): k for k, t in enumerate(cfg.tag_ids())}
+        err = np.array([np.linalg.norm(T[f, d, :3, 3] - gt[first + f, index[int(ids[f, d])], :3, 3])
+                        for first, ids, T, ok in kept for f, d in zip(*np.nonzero(ok))])
+        out["replay"] = {"resolution": f"{W4}x{H4}", "frames": n, "fps": n / dt, "vs_realtime_30fps": n / dt / 30.0,
+                         "tag_poses": dets, "ccl_launches_per_pass": launches_replay,
+                         "ccl_launches_warmup": launches_warm, "t_err_median": float(np.median(err)),
+                         "t_err_p95": float(np.percentile(err, 95))}
+        # Where a batch's time goes: the reader, the detector and PnP, each
+        # alone over the clip's batches (host clock, synchronised).
+        with Y4MReader(clip) as r:
+            t0 = time.perf_counter()
+            batches = [r.read_batch(BATCH) for _ in range(n // BATCH)]
+            read_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        on_card = [torch.from_numpy(b).to(dev) for b in batches]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets_all = [detector.detect(b) for b in on_card]
+        torch.cuda.synchronize()
+        detect_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        t0 = time.perf_counter()
+        for d in dets_all:
+            poses_from_detections(d, K, cfg.tag_size_inner)
+        torch.cuda.synchronize()
+        out["replay"].update(read_ms=read_ms, detect_ms=detect_ms,
+                             pnp_ms=(time.perf_counter() - t0) * 1e3 / len(batches), batch_ms=1e3 * dt / len(batches))
+        log(f"config 4 replay: {n / dt:.2f} fps over {n} frames ({dets} tag poses), "
+            f"t err median {out['replay']['t_err_median']:.4f} p95 {out['replay']['t_err_p95']:.4f} su, "
+            f"{launches_replay} CCL launches; per batch {out['replay']['batch_ms']:.1f} ms: read "
+            f"{read_ms:.2f}, detect {detect_ms:.1f}, PnP {out['replay']['pnp_ms']:.1f} [{card}]")
+        check(dets >= 146, f"config 4: {dets} tag poses < 146 (0.9 x the reference's 162)")
+        check(len(err) == dets, f"config 4: the accuracy pass found {len(err)} poses, the timed one {dets}")
+        check(launches_replay == n // BATCH, f"config 4: CCL launches {launches_replay} != {n // BATCH}")
+        check(out["replay"]["t_err_median"] <= 1.1 * CONFIG4_CPU_T_ERR_MEDIAN,
+              f"config 4: median translation error {out['replay']['t_err_median']} > 1.1 x "
+              f"{CONFIG4_CPU_T_ERR_MEDIAN}")
+        dec = decimate(to_grayscale(torch.from_numpy(frames[:BATCH]).to(dev)), params.quad_decimate)
+        first_map = adaptive_threshold_with_levels(dec, tile=params.tile,
+                                                   min_contrast=params.min_contrast)[0].contiguous()
+
+        # (e) the video app in this process, on the calibration it wrote.
+        lines = []
+        grab = logging.Handler(logging.INFO)
+        grab.emit = lambda record: lines.append(record.getMessage())
+        video_log = logging.getLogger("video")
+        video_log.setLevel(logging.INFO)
+        video_log.addHandler(grab)
+        ccl.ccl_launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = video_detection.main(["--source", clip, "--calibration", npz, "--family", cfg.family,
+                                           "--tag-size", str(cfg.tag_size_inner), "--batch", str(BATCH),
+                                           "--max-frames", str(n_frames), "--device", dev.type])
+            torch.cuda.synchronize()
+        finally:
+            video_log.removeHandler(grab)
+            for h in logging.root.handlers[:]:
+                h.close()
+                logging.root.removeHandler(h)
+        app_wall = time.perf_counter() - t0
+        launches_app = ccl.ccl_launches
+        tag_lines = [m for m in lines if m.startswith("tag ")]
+        fps_lines = [m for m in lines if m.startswith("[")]
+        out["app"] = {"rc": rc, "tag_lines": len(tag_lines), "ccl_launches": launches_app, "wall_s": app_wall,
+                      "wall_fps": n_frames / app_wall, "fps_lines": fps_lines, "last_line": lines[-1] if lines else None,
+                      "dist_coeffs_shape": list(np.load(npz)["dist_coeffs"].shape)}
+        log(f"config 4 app: rc {rc}, {len(tag_lines)} tag lines, {launches_app} CCL launches, "
+            f"{fps_lines[-1] if fps_lines else 'no fps line'}, wall {n_frames / app_wall:.2f} fps [{card}]")
+        check(rc == 0, f"config 4: the video app returned {rc}")
+        check(launches_app == n_frames // BATCH, f"config 4: app CCL launches {launches_app} != {n_frames // BATCH}")
+        check(len(tag_lines) > 0, "config 4: the video app reported no tag")
+
+    # (f) a generated 1024-code family against the built-in one on 8 headline
+    # poses of the default scene at 1000x1000.
+    t0 = time.perf_counter()
+    fam = generate_family(1024, seed=0)
+    gen_s = time.perf_counter() - t0
+    cam_h = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
+    hp = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16, max_boundary=8192)
+    ids = {}
+    ccl.ccl_launches = 0
+    for name, family in (("builtin", None), ("generated", fam)):
+        sc = scene_tensors(cfg, family=family, device=dev)
+        img = torch.clamp(render_frames(sc, main_traj.positions[:BATCH], main_traj.rotations[:BATCH],
+                                        cam_h.inv_matrix, RES, RES, 2, device=dev) * 255.0, 0, 255).to(torch.uint8)
+        det = TagDetector(family or cfg.family, hp, device=dev).detect(img)
+        ids[name] = [sorted(int(i) for i in row[v]) for row, v in zip(det.ids.cpu().numpy(), det.valid.cpu().numpy())]
+    launches_gen = ccl.ccl_launches
+    out["generated_family"] = {"name": fam.name, "n_codes": fam.n_codes, "generate_s": gen_s,
+                               "ids_builtin": ids["builtin"], "ids_generated": ids["generated"],
+                               "ccl_launches": launches_gen}
+    log(f"config 4 generated family {fam.name}: {gen_s:.2f} s; ids per frame {ids['generated']} "
+        f"(built-in {ids['builtin']}) [{card}]")
+    check(ids["generated"] == ids["builtin"], "config 4: the generated family's ids differ from the built-in's")
+    check(sum(map(len, ids["builtin"])) > 0, "config 4: no tag detected on the headline poses")
+    launches = {"replay_per_pass": launches_replay, "app": launches_app, "generated_family": launches_gen}
+    return out, launches, first_map
+
+
 def host_syncs(slam, chunk) -> Counter:
     """Host syncs of one step, counted by the line of the port that made them."""
     torch.cuda.set_sync_debug_mode("warn")
@@ -586,9 +839,15 @@ def main() -> int:
 
     dev = torch.device("cuda")
 
-    # ---- 2. build ---------------------------------------------------------
-    lib_path, build_s = ccl.build_ccl(verbose=True)
-    log(f"build: {lib_path.name} in {build_s:.2f} s")
+    # ---- 2. build: the kernel (nvcc) and the native runtime (g++) together --
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aprilslam_tpu_torch.runtime import build_runtime
+
+    with ThreadPoolExecutor(2) as pool:
+        ccl_build, runtime_build = pool.submit(ccl.build_ccl, True), pool.submit(build_runtime)
+        (lib_path, build_s), (rt_path, rt_build_s) = ccl_build.result(), runtime_build.result()
+    log(f"build: {lib_path.name} in {build_s:.2f} s; {rt_path.name} in {rt_build_s:.2f} s")
 
     # ---- main-path frames (also phase 3's rendered inputs) ----------------
     cfg = SceneConfig.from_file()
@@ -693,7 +952,22 @@ def main() -> int:
     apps["phase_s"] = time.perf_counter() - t0
     log(f"apps phase: {apps['phase_s']:.1f} s")
 
-    # ---- 8. report --------------------------------------------------------
+    # ---- 8. config 4 -------------------------------------------------------
+    t0 = time.perf_counter()
+    config4, config4_launches, config4_map = config4_phase(dev, card, traj, rt_build_s)
+    config4["phase_s"] = time.perf_counter() - t0
+    log(f"config 4 phase: {config4['phase_s']:.1f} s")
+    name4 = "config4_8x240x320"
+    ccl_timing["ms"][name4] = time_cuda(lambda: ccl.connected_components(config4_map), 200)
+    ccl_timing["device_ms"][name4] = time_cuda_graph(lambda: ccl.connected_components(config4_map))
+    ccl_timing["bound_ms"][name4] = config4_map.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    check(np.array_equal(ccl.connected_components(config4_map).cpu().numpy(),
+                         scipy_labels(config4_map.cpu().numpy())), "kernel != scipy oracle on the config-4 map")
+    log(f"ccl timing {name4}: kernel {ccl_timing['ms'][name4]:.4f} ms "
+        f"({ccl_timing['device_ms'][name4]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name4]:.5f} ms "
+        f"(bytes) [{card}]")
+
+    # ---- 9. report --------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -703,6 +977,7 @@ def main() -> int:
         "launches_config2_per_pass": config2_launches,
         "launches_sim_cli": launches_cli,
         "launches_serve": launches_serve,
+        "launches_config4": config4_launches,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -720,6 +995,7 @@ def main() -> int:
     log(json.dumps({"config2": config2}))
     log(json.dumps({"options": options, "card": card}))
     log(json.dumps({"apps": apps, "card": card}))
+    log(json.dumps({"config4": config4}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+from aprilslam_tpu_torch.apps import calibrate, video_detection
+from aprilslam_tpu_torch.calib import board_points, calibrate_camera
 from aprilslam_tpu_torch.detect import FamilyTensors, detect_fn
 from aprilslam_tpu_torch.families import get_family
 from aprilslam_tpu_torch.geometry import PinholeCamera
@@ -37,3 +39,21 @@ def test_entry_point_defaults_to_the_card(name):
             make()
         return
     assert make().device.type == "cuda"
+
+
+# Entry points whose result lives on the host: they are called at their
+# defaults, and without a GPU they must raise before doing any work.
+HOST_RESULT_ENTRY_POINTS = {
+    "calibrate_camera": lambda tmp: calibrate_camera(
+        board_points(4, 3, 1.0), [np.zeros((12, 2), np.float32)] * 3),
+    "video_detection.main": lambda tmp: video_detection.main(["--source", str(tmp / "none.y4m")]),
+    "calibrate.main": lambda tmp: calibrate.main(["solve", "--images", str(tmp / "*.png")]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_RESULT_ENTRY_POINTS))
+def test_host_result_entry_point_raises_without_a_card(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py runs these on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HOST_RESULT_ENTRY_POINTS[name](tmp_path)

@@ -24,6 +24,8 @@ DATA_FILES = [
     "families/data/tagStandard41h12.npz",
     "sim/data/default_scene.json",
 ]
+# The native runtime's sources: the port builds its own copies.
+NATIVE_SOURCES = ["runtime/rasterizer.cpp", "runtime/video_io.cpp"]
 
 
 def test_port_imports_with_jax_blocked():
@@ -57,7 +59,7 @@ def test_no_jax_import(rel):
     assert not roots & {"jax", "jaxlib", "aprilslam_tpu"}, (rel, roots)
 
 
-@pytest.mark.parametrize("rel", DATA_FILES)
+@pytest.mark.parametrize("rel", DATA_FILES + NATIVE_SOURCES)
 def test_data_files_are_copies(rel):
     assert (PORT / rel).read_bytes() == (ROOT / "aprilslam_tpu" / rel).read_bytes()
 

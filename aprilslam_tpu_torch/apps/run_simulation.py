@@ -24,6 +24,7 @@ import time
 
 OUTPUT_FIELDS = ("poses", "valid", "pose_obs", "n_nodes", "avg_node_distance", "reproj_rms",
                  "coord_id", "node_visible", "node_weight", "node_local", "node_world")
+EXPORT_FIELDS = ("det_ids", "det_corners", "det_ok")
 
 
 def parse_arguments(argv=None):
@@ -53,7 +54,8 @@ def parse_arguments(argv=None):
     p.add_argument("--save-viz", default=None,
                    help="directory to save visualizer snapshots (map/graph/error; needs matplotlib)")
     p.add_argument("--export-problem", default=None, metavar="NPZ",
-                   help="export the run as a global-BA problem (not ported yet: ROADMAP item 17)")
+                   help="export the run (poses, detections, odometry, map) as a "
+                        "global-BA problem for aprilslam-torch-refine")
     p.add_argument("--headless", action="store_true", help="no dashboard printing")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None,
@@ -110,10 +112,6 @@ def colour_for(err_mm: float) -> str:
 
 def main(argv=None) -> int:
     args = parse_arguments(argv)
-    if args.export_problem:
-        raise NotImplementedError(
-            "--export-problem builds a KeyframeBAProblem from parallel/keyframe_ba.py, "
-            "which is not ported yet (ROADMAP item 17)")
     from ..device import resolve_device
 
     dev = resolve_device(args.device)
@@ -183,6 +181,9 @@ def main(argv=None) -> int:
     id_to_idx = {int(t): i for i, t in enumerate(ids)}
     tag_pos_np = np.asarray(cfg.tag_positions())
     est_all, gt_all, valid_all, obs_all = [], [], [], []
+    # --export-problem: the run's poses and detections, chunk by chunk.
+    export = ([], [], [], [], [], []) if args.export_problem else None
+    fetch = OUTPUT_FIELDS + (EXPORT_FIELDS if export is not None else ())
 
     ckpt = None
     if args.checkpoint_dir:
@@ -227,7 +228,7 @@ def main(argv=None) -> int:
             frames = render_frames(scene, pos_np, rot_np, cam.inv_matrix, res, res, 2, device=dev)
             outs = slam.process(frames)
             # One host copy per output field for the whole chunk.
-            h = {k: getattr(outs, k).cpu().numpy() for k in OUTPUT_FIELDS}
+            h = {k: getattr(outs, k).cpu().numpy() for k in fetch}
             pos = torch.as_tensor(pos_np, dtype=torch.float32)
             rot = torch.as_tensor(rot_np, dtype=torch.float32)
             # GT transforms for ALL tags at this chunk's camera poses:
@@ -281,6 +282,9 @@ def main(argv=None) -> int:
                         gt_world_dist, float(np.linalg.norm(gt_local[:3, 3]))
                     )
             valid_all.append(valid)
+            if export is not None:
+                for buf, arr in zip(export, (est, valid, coord, h["det_ids"], h["det_corners"], h["det_ok"])):
+                    buf.append(arr)
             if ckpt is not None and ((s + args.batch) % max(args.checkpoint_every, args.batch) == 0
                                      or s + args.batch >= n):
                 ckpt.save(s + args.batch, slam.state)
@@ -353,6 +357,28 @@ def main(argv=None) -> int:
     }
     if args.pgo and slam.pgo_state is not None:
         summary["loop_closures"] = int(slam.pgo_state.n_loops)
+    if export is not None:
+        from .refine_trajectory import problem_from_run, save_problem
+
+        poses_e, valid_e, coord_e, ids_e, corners_e, ok_e = (np.concatenate(b) for b in export)
+        gstate = slam.graph_state
+        lm_world, lm_present = gstate.world.cpu().numpy(), gstate.present.cpu().numpy()
+        ba = slam.ba_state
+        if ba is not None and valid_e.any():
+            # Prefer the refined BA landmarks, conjugated into the anchor
+            # (coordinate-tag) frame the exported poses live in.
+            anchor = int(coord_e[valid_e][-1])
+            lm_pose = ba.lm_pose.cpu().numpy()
+            lm_act = ba.lm_active.cpu().numpy()
+            if 0 <= anchor < len(lm_pose) and lm_act[anchor]:
+                T_wa_inv = np.linalg.inv(lm_pose[anchor])
+                lm_world = np.einsum("ij,mjk->mik", T_wa_inv, lm_pose)
+                lm_present = lm_act
+        prob = problem_from_run(poses_e, valid_e, coord_e, ids_e, corners_e, ok_e,
+                                lm_world, lm_present, device="cpu")
+        save_problem(args.export_problem, prob, cam.matrix, tag_size=cfg.tag_size_inner)
+        summary["exported_problem"] = args.export_problem
+        summary["exported_keyframes"] = prob.n_keyframes
     print(json.dumps(summary))
     return 0
 

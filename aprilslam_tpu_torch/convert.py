@@ -4,7 +4,10 @@ The JAX package's ``GraphState``, ``BAState``, ``PgoState`` (with its nested
 ``PoseGraphEdges``) and ``TagGraphState`` hold the map a run has built (its
 "weights"). Passed as numpy arrays under their field names, they become the
 port's dataclasses of tensors and back, so a run can continue in the other
-framework from the same state. A nested dataclass is a nested dict.
+framework from the same state. A nested dataclass is a nested dict. The
+parallel layer's inputs cross the same way: a ``KeyframeBAProblem``, and a
+``BAState`` whose fields carry a leading sequence dimension
+(``stack_ba_states``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .parallel.keyframe_ba import KeyframeBAProblem
 from .slam.ba import BAState
 from .slam.graph import GraphState
 from .slam.loop import PgoState
@@ -73,3 +77,20 @@ def state_to_numpy(state):
     if dataclasses.is_dataclass(state):
         return _to_numpy(state)
     return tuple(_to_numpy(s) for s in state)
+
+
+def ba_state_from_jax_numpy(ba: dict, device: str | torch.device | None = None) -> BAState:
+    """A lone ``BAState`` from the JAX state's fields, stacked (leading
+    sequence dimension, as ``stack_ba_states`` builds it) or not."""
+    return _from_numpy(BAState, ba, resolve_device(device))
+
+
+def keyframe_problem_from_jax_numpy(arrays: dict,
+                                    device: str | torch.device | None = None) -> KeyframeBAProblem:
+    """The port's ``KeyframeBAProblem`` from the JAX problem's fields."""
+    return _from_numpy(KeyframeBAProblem, arrays, resolve_device(device))
+
+
+def problem_to_numpy(prob: KeyframeBAProblem) -> dict:
+    """The reverse: the problem's fields as numpy arrays under their names."""
+    return _to_numpy(prob)

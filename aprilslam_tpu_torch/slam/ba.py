@@ -213,12 +213,24 @@ def _damp_blocks(H: torch.Tensor, lam: torch.Tensor, prior: torch.Tensor) -> tor
 
 
 def _solve_jacobi(Sd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve Sd x = rhs with Jacobi (diagonal) preconditioning."""
-    d = torch.clamp(torch.abs(torch.diagonal(Sd)), min=1e-8)
+    """Solve Sd x = rhs with Jacobi (diagonal) preconditioning; leading
+    dimensions of Sd (..., n, n) and rhs (..., n) are a batch of systems."""
+    d = torch.clamp(torch.abs(torch.diagonal(Sd, dim1=-2, dim2=-1)), min=1e-8)
     m = 1.0 / torch.sqrt(d)
-    Ss = Sd * m[:, None] * m[None, :]
-    y = torch.linalg.solve_ex(Ss, (rhs * m)[:, None]).result[:, 0]
+    Ss = Sd * m[..., :, None] * m[..., None, :]
+    y = torch.linalg.solve_ex(Ss, (rhs * m)[..., None]).result[..., 0]
     return y * m
+
+
+def index_add(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``dst`` with ``vals`` summed into its rows ``idx``, in place, in the
+    same order on every run. CUDA's ``index_add_`` adds with atomics, so the
+    last bits of a float sum vary from run to run; an accumulating
+    ``index_put_`` sorts the indices first and sums each row in that order.
+    The CPU's ``index_add_`` is already ordered."""
+    if dst.is_cuda:
+        return dst.index_put_((idx,), vals, accumulate=True)
+    return dst.index_add_(0, idx, vals)
 
 
 def lm_obs_grid(obs_lm: torch.Tensor, obs_ok: torch.Tensor, M: int, P: int):
@@ -254,8 +266,8 @@ def schur_sparse(grid, A, obs_kf, obs_lm, Hll_inv, Hcc_d, bc, bl, K):
     rhs = bc - sum_o A_o (Hll_inv_{m_o} bl_{m_o})
 
     Invalid observations carry A_o = 0 (their Jacobians are weighted by the
-    ok mask). The pair blocks are scatter-added (``index_add_``), so on the
-    card their summation order, and the last bits of S, may vary."""
+    ok mask). The pair blocks are scatter-added in a fixed order
+    (``index_add``)."""
     O = A.shape[0]
     Mi, P = grid.shape
     g = grid.long()
@@ -268,7 +280,7 @@ def schur_sparse(grid, A, obs_kf, obs_lm, Hll_inv, Hcc_d, bc, bl, K):
     ki = kf_g[:, :, None].expand(Mi, P, P)
     kj = kf_g[:, None, :].expand(Mi, P, P)
     flat = torch.where((ki < K) & (kj < K), ki * K + kj, K * K).reshape(-1)
-    S = A.new_zeros((K * K + 1, 6, 6)).index_add_(0, flat, -pair.reshape(-1, 6, 6))[:-1]
+    S = index_add(A.new_zeros((K * K + 1, 6, 6)), flat, -pair.reshape(-1, 6, 6))[:-1]
     S = S.reshape(K, K, 6, 6)
     diag_k = torch.arange(K, device=A.device)
     S[diag_k, diag_k] += Hcc_d

@@ -42,7 +42,16 @@ Phases (any failed check exits non-zero):
    batched detection and PnP (a warm-up pass kept for accuracy, a timed
    pass); the video app in process on that clip and calibration; and a
    generated 1024-code family against the built-in one on 8 headline poses;
-9. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
+9. the parallel package: BASELINE config 3 (``bench.py:465-522``: 8
+   sequences x 2 chunks of 8 frames at 1000x1000 through
+   ``build_parallel_slam``, a warm pass kept for accuracy, one timed pass,
+   then one chunk with both pose graphs on); config 5 on the keyframe axis
+   (10240 keyframes, 256 tags, 4 LM x 32 PCG) and the landmark axis (10240
+   tags, 64 keyframes, 16384 observations, 4 LM), each at 1 and 8 shards on
+   the one card, with the landmark solve once more on a single-rank NCCL
+   process group; ``aprilslam-torch-refine --demo`` at its defaults at 1 and
+   8 shards; a 16-frame CLI run's ``--export-problem`` refined on the card;
+10. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
    per kernel, the card line, and a final JSON status line.
 """
 
@@ -63,7 +72,7 @@ import threading
 import time
 import warnings
 from collections import Counter
-from dataclasses import replace
+from dataclasses import fields, replace
 from pathlib import Path
 
 import numpy as np
@@ -82,6 +91,16 @@ WAYPOINTS = np.array([
     [60.0, 2.0, 12.0], [0.0, 0.0, 10.0],
 ])
 CONFIG2_FRAMES = 96
+# BASELINE config 3 (bench.py:465-522): 8 sequences, 2 chunks of 8 frames
+# each, the headline step.
+CONFIG3 = dict(estimator="ba", ba_schedule="chunk", init_joint_iters=3, ba_chunk_iters=4, pnp_iters=3,
+               graph_capacity=16)
+CONFIG3_SEQ, CONFIG3_CHUNKS = 8, 2
+# BASELINE config 5 (tools/scaling_bench.py --mode kf and --mode lm).
+CONFIG5_KF = dict(keyframes=10240, landmarks=256, iters=4, cg_iters=32)
+CONFIG5_LM = dict(landmarks=10240, keyframes=64, obs=16384, iters=4)
+# The JAX refine demo's cost_refined at its defaults on the CPU, by shard count.
+REFINE_JAX_CPU_COST = {1: 9081.0, 8: 8934.6}
 APPS_FRAMES = 64  # the simulation CLI's default --frames
 BATCH = 8
 RES = 1000
@@ -750,15 +769,289 @@ def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[di
     return out, launches, first_map
 
 
+def lm_world(n_lm: int, n_kf: int, n_obs: int, seed: int = 0):
+    """The landmark-axis world of ``tools/scaling_bench.py:64-131`` on the
+    port: a square grid of ``n_lm`` tags 25 units apart, ``n_kf`` keyframes
+    looking down from 140 units at random spots, each observing its
+    ``n_obs / n_kf`` nearest tags with 0.3 px corner noise, and keyframes
+    and tags perturbed by se3_exp of 0.01-sigma noise. Returns (BAState on
+    the CPU, Kmat, the largest observation count of one landmark)."""
+    from aprilslam_tpu_torch.geometry import PinholeCamera, se3_exp, tag_object_corners
+    from aprilslam_tpu_torch.slam import ba_init
+
+    rng = np.random.default_rng(seed)
+    M, K, O = n_lm, n_kf, n_obs
+    Km = PinholeCamera.from_fov(1000, 1000, 45.0).matrix
+    obj = tag_object_corners(10.0).numpy()
+    side = int(np.ceil(np.sqrt(M)))
+    lm_pose = np.broadcast_to(np.eye(4, dtype=np.float32), (M, 4, 4)).copy()
+    lm_pose[:, 0, 3] = (np.arange(M) % side) * 25.0
+    lm_pose[:, 1, 3] = (np.arange(M) // side) * 25.0
+    kf_pose = np.broadcast_to(np.eye(4, dtype=np.float32), (K, 4, 4)).copy()
+    for k in range(K):
+        kf_pose[k][:3, :3] = np.diag([1, -1, -1]).astype(np.float32)
+        kf_pose[k][:3, 3] = [rng.uniform(0, side * 25), rng.uniform(0, side * 25), 140.0]
+    obs_kf, obs_lm = np.zeros(O, np.int32), np.zeros(O, np.int32)
+    obs_uv = np.zeros((O, 4, 2), np.float32)
+    i = 0
+    for k in range(K):
+        d = np.linalg.norm(lm_pose[:, :3, 3] - kf_pose[k][:3, 3], axis=-1)
+        for m in np.argsort(d)[:O // K]:
+            T_ct = np.linalg.inv(kf_pose[k]) @ lm_pose[m]
+            p = obj @ T_ct[:3, :3].T + T_ct[:3, 3]
+            uv = p[:, :2] / p[:, 2:3]
+            obs_uv[i] = np.stack([Km[0, 0] * uv[:, 0] + Km[0, 2], Km[1, 1] * uv[:, 1] + Km[1, 2]], -1) \
+                + rng.normal(scale=0.3, size=(4, 2))
+            obs_kf[i], obs_lm[i] = k, m
+            i += 1
+
+    def noisy(T):
+        xi = torch.as_tensor(np.stack([rng.normal(scale=0.01, size=6) for _ in range(len(T))]), dtype=torch.float32)
+        return (se3_exp(xi).numpy() @ T).astype(np.float32)
+
+    kf_noisy, lm_noisy = noisy(kf_pose), noisy(lm_pose)
+    t = torch.as_tensor
+    st = replace(ba_init(K, M, O, device="cpu"),
+                 kf_pose=t(kf_noisy), kf_active=torch.ones(K, dtype=torch.bool),
+                 lm_pose=t(lm_noisy), lm_active=torch.ones(M, dtype=torch.bool),
+                 obs_kf=t(obs_kf), obs_lm=t(obs_lm), obs_uv=t(obs_uv), obs_ok=t(np.arange(O) < i),
+                 anchor=torch.tensor(0, dtype=torch.int32), kf_ptr=torch.tensor(K, dtype=torch.int32))
+    return st, t(Km), int(np.bincount(obs_lm[:i], minlength=M).max())
+
+
+def sync_lines(fn) -> tuple:
+    """(fn's result, its host syncs counted by the line of the port that
+    made them), from torch's sync debug mode."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return res, Counter(f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
+                        for w in caught if "synchroniz" in str(w.message))
+
+
+def timed(fn):
+    """(fn's result, its wall seconds, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
+    """The parallel package (ROADMAP item 17): BASELINE config 3 through
+    ``build_parallel_slam`` (``bench.py:465-522``), config 5 on the
+    keyframe axis and the landmark axis (``tools/scaling_bench.py`` kf and
+    lm modes) at 1 and 8 shards on the one card, the landmark solve on a
+    single-rank NCCL group, ``aprilslam-torch-refine --demo`` in process,
+    and a CLI run's ``--export-problem`` refined on the card. Returns the
+    report and the CCL launches of config 3."""
+    import torch.distributed as dist
+
+    from aprilslam_tpu_torch.apps import refine_trajectory
+    from aprilslam_tpu_torch.eval import ate_eval
+    from aprilslam_tpu_torch.geometry import PinholeCamera
+    from aprilslam_tpu_torch.ops import ccl
+    from aprilslam_tpu_torch.parallel import (
+        build_distributed_ba, build_keyframe_ba, build_parallel_slam, initialize_distributed,
+        keyframe_ba_cost, make_mesh, partition_obs_by_keyframe, shard_observations_by_owner,
+        synthesize_trajectory_problem)
+    from aprilslam_tpu_torch.parallel.multihost import make_global
+    from aprilslam_tpu_torch.parallel.distributed_ba import LM_SHARDED
+    from aprilslam_tpu_torch.sim import SceneConfig, trajectory
+    from aprilslam_tpu_torch.slam import SlamOutputs, ba_cost
+
+    out = {"card": card}
+    launches = {}
+
+    # (a) config 3: 8 sequences x 2 chunks of 8 frames at 1000x1000.
+    cfg = SceneConfig.from_file()
+    cam = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
+    trajs = [[trajectory.monte_carlo(BATCH, seed=100 + 10 * s + k) for k in range(CONFIG3_CHUNKS)]
+             for s in range(CONFIG3_SEQ)]
+    t0 = time.perf_counter()
+    per_seq = [render_chunks(cfg, cam, trajectory.Trajectory(
+        np.concatenate([t.positions for t in tr]), np.concatenate([t.rotations for t in tr])),
+        BATCH * CONFIG3_CHUNKS, dev) for tr in trajs]
+    chunks3 = [torch.stack([per_seq[s][k] for s in range(CONFIG3_SEQ)]) for k in range(CONFIG3_CHUNKS)]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    mesh = make_mesh(CONFIG3_SEQ, axis="data", device=dev)
+    pstep, init_states, _shard = build_parallel_slam(mesh, cfg.family, cam, cfg.tag_size_inner,
+                                                     detector_params=params, **CONFIG3)
+    states = init_states()
+    ccl.ccl_launches = 0
+    warm = []
+    for c in chunks3:  # the warm pass, kept for accuracy
+        states, o = pstep(states, c)
+        warm.append(o)
+    torch.cuda.synchronize()
+    launches["warm_pass"] = ccl.ccl_launches
+    ccl.ccl_launches = 0
+    t0 = time.perf_counter()
+    timed_outs = []
+    for c in chunks3:
+        states, o = pstep(states, c)
+        timed_outs.append(o)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["per_pass"] = ccl.ccl_launches
+    frames_timed = CONFIG3_SEQ * CONFIG3_CHUNKS * BATCH
+    valid = torch.cat([o.valid.reshape(-1) for o in timed_outs])
+    for o in timed_outs + warm:
+        for name, v in vars(o).items():
+            check(v.device.type == "cuda", f"config 3: output {name} is on {v.device}")
+    seq_outs = lambda outs, s: [SlamOutputs(**{k: v[s] for k, v in vars(o).items()}) for o in outs]  # noqa: E731
+    ates = [ate_eval(cfg, np.concatenate([t.positions for t in trajs[s]]),
+                     np.concatenate([t.rotations for t in trajs[s]]), seq_outs(warm, s))[0]
+            for s in range(CONFIG3_SEQ)]
+    c3 = {"sequences": CONFIG3_SEQ, "batch_per_seq": BATCH, "chunks": CONFIG3_CHUNKS, "resolution": RES,
+          "timed_passes": 1, "aggregate_fps": frames_timed / dt, "frames_timed": frames_timed,
+          "valid_rate": float(valid.float().mean()), "valid_rate_last_step": float(timed_outs[-1].valid.float().mean()),
+          "ccl_launches_per_pass": launches["per_pass"], "ccl_launches_warm_pass": launches["warm_pass"],
+          "ate_per_sequence_warm_pass": ates, "render_s": render_s}
+    check(bool(torch.isfinite(torch.cat([o.poses[o.valid] for o in timed_outs])).all()),
+          "config 3: a valid pose is not finite")
+    check(c3["valid_rate"] >= 0.95, f"config 3: valid rate {c3['valid_rate']} < 0.95")
+    check(launches["per_pass"] == CONFIG3_SEQ * CONFIG3_CHUNKS,
+          f"config 3: CCL launches {launches['per_pass']} != {CONFIG3_SEQ * CONFIG3_CHUNKS}")
+    # One chunk with both pose graphs on (the production composition).
+    pstep_pgo, init_pgo, _ = build_parallel_slam(mesh, cfg.family, cam, cfg.tag_size_inner,
+                                                 detector_params=params, pgo=True, **CONFIG3)
+    ccl.ccl_launches = 0
+    (st_pgo, o_pgo), pgo_s = timed(lambda: pstep_pgo(init_pgo(), chunks3[0]))
+    launches["pgo_chunk"] = ccl.ccl_launches
+    c3["pgo_chunk"] = {"valid_rate": float(o_pgo.valid.float().mean()), "s": pgo_s,
+                       "finite": bool(torch.isfinite(o_pgo.poses[o_pgo.valid]).all()),
+                       "pgo_frames": [int(s[2].frame) for s in st_pgo], "ccl_launches": launches["pgo_chunk"]}
+    check(c3["pgo_chunk"]["finite"] and c3["pgo_chunk"]["valid_rate"] >= 0.95,
+          f"config 3 pgo: {c3['pgo_chunk']}")
+    check(c3["pgo_chunk"]["pgo_frames"] == [BATCH] * CONFIG3_SEQ, f"config 3 pgo: {c3['pgo_chunk']}")
+    out["config3"] = c3
+    log(f"config 3: {c3['aggregate_fps']:.3f} aggregate fps over {frames_timed} frames, valid "
+        f"{c3['valid_rate']:.4f}, {launches['per_pass']} CCL launches per pass, ATE per sequence "
+        f"{[round(a, 4) for a in ates]}; pgo chunk valid {c3['pgo_chunk']['valid_rate']:.4f} in {pgo_s:.2f} s [{card}]")
+
+    # (b) config 5, keyframe axis: scaling_bench --mode kf.
+    t0 = time.perf_counter()
+    prob8, kf_gt, Kk = synthesize_trajectory_problem(CONFIG5_KF["keyframes"], CONFIG5_KF["landmarks"], 8,
+                                                     obs_per_kf=4, seed=7, device=dev)
+    synth_s = time.perf_counter() - t0
+    p_kf, p_lm, p_uv, p_ok = partition_obs_by_keyframe(prob8.obs_kf.cpu().numpy(), prob8.obs_lm.cpu().numpy(),
+                                                       prob8.obs_uv.cpu().numpy(), prob8.obs_ok.cpu().numpy(),
+                                                       prob8.n_keyframes, 1)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    probs = {1: replace(prob8, obs_kf=t(p_kf), obs_lm=t(p_lm), obs_uv=t(p_uv), obs_ok=t(p_ok)), 8: prob8}
+    ate = lambda p: float(np.sqrt(np.mean(np.sum((p.kf_pose[:, :3, 3].cpu().numpy() - kf_gt[:, :3, 3]) ** 2, -1))))  # noqa: E731
+    kf = {"keyframes": prob8.n_keyframes, "landmarks": prob8.n_landmarks, "obs_per_kf": 4,
+          "iters": CONFIG5_KF["iters"], "cg_iters": CONFIG5_KF["cg_iters"], "synth_s": synth_s,
+          "cost_initial": float(keyframe_ba_cost(prob8, Kk, 10.0)), "ate_initial": ate(prob8)}
+    for n, prob in probs.items():
+        run = build_keyframe_ba(make_mesh(n, axis="kf", device=dev), prob.n_keyframes, prob.n_landmarks,
+                                int(prob.obs_kf.shape[0]), 10.0, iters=CONFIG5_KF["iters"],
+                                cg_iters=CONFIG5_KF["cg_iters"])
+        run(prob, Kk)  # warm-up: the card's libraries and allocator
+        torch.cuda.reset_peak_memory_stats()
+        ((p, _c), syncs), solve_s = timed(lambda: sync_lines(lambda: run(prob, Kk)))
+        kf[f"shards_{n}"] = {"solve_s": solve_s, "cost_refined": float(keyframe_ba_cost(p, Kk, 10.0)),
+                             "ate_refined": ate(p), "host_syncs": sum(syncs.values()),
+                             "sync_lines": syncs.most_common(4),
+                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "finite": bool(torch.isfinite(p.kf_pose).all())}
+        check(kf[f"shards_{n}"]["finite"], f"config 5 kf: non-finite poses at {n} shards")
+        check(kf[f"shards_{n}"]["ate_refined"] < kf["ate_initial"],
+              f"config 5 kf: ATE {kf[f'shards_{n}']['ate_refined']} not below {kf['ate_initial']} at {n} shards")
+    c1, c8 = kf["shards_1"]["cost_refined"], kf["shards_8"]["cost_refined"]
+    check(abs(c8 - c1) <= 0.05 * c1, f"config 5 kf: 8-shard cost {c8} not within 5 % of 1-shard {c1}")
+    out["config5_kf"] = kf
+    log(f"config 5 kf axis: {json.dumps(kf)} [{card}]")
+
+    # (c) config 5, landmark axis: scaling_bench --mode lm.
+    t0 = time.perf_counter()
+    st, Kl, P_max = lm_world(CONFIG5_LM["landmarks"], CONFIG5_LM["keyframes"], CONFIG5_LM["obs"])
+    lm = {"landmarks": CONFIG5_LM["landmarks"], "keyframes": CONFIG5_LM["keyframes"],
+          "observations": int(st.obs_ok.sum()), "max_obs_per_landmark": P_max, "iters": CONFIG5_LM["iters"],
+          "synth_s": time.perf_counter() - t0}
+    st = replace(st, **{f.name: getattr(st, f.name).to(dev) for f in fields(st)})
+    Kl = Kl.to(dev)
+    lm["cost_initial"] = float(ba_cost(st, Kl, 10.0))
+    sharded = {1: st, 8: shard_observations_by_owner(st, 8, fit=True)}
+    for n, s_n in sharded.items():
+        run = build_distributed_ba(make_mesh(n, axis="lm", device=dev), s_n.n_keyframes, s_n.n_landmarks,
+                                   s_n.n_obs_capacity, 10.0, iters=CONFIG5_LM["iters"], max_obs_per_lm=P_max)
+        run(s_n, Kl)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ((o, _c), syncs), solve_s = timed(lambda: sync_lines(lambda: run(s_n, Kl)))
+        lm[f"shards_{n}"] = {"solve_s": solve_s, "s_per_iter": solve_s / CONFIG5_LM["iters"],
+                             "cost_refined": float(ba_cost(o, Kl, 10.0)), "host_syncs": sum(syncs.values()),
+                             "sync_lines": syncs.most_common(4),
+                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(lm[f"shards_{n}"]["cost_refined"] < lm["cost_initial"],
+              f"config 5 lm: cost not reduced at {n} shards: {lm[f'shards_{n}']}")
+    c1, c8 = lm["shards_1"]["cost_refined"], lm["shards_8"]["cost_refined"]
+    check(abs(c8 - c1) <= 0.05 * c1, f"config 5 lm: 8-shard cost {c8} not within 5 % of 1-shard {c1}")
+    # The same one-shard solve on a single-rank NCCL process group.
+    initialize_distributed(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0, platform="gpu")
+    try:
+        check(dist.get_backend() == "nccl", f"process group backend {dist.get_backend()}")
+        mesh_pg = make_mesh(axis="lm", device=dev, group=dist.group.WORLD)
+        s_pg = replace(st, **{f: make_global(mesh_pg, "lm", getattr(st, f)) for f in LM_SHARDED})
+        run = build_distributed_ba(mesh_pg, st.n_keyframes, st.n_landmarks, st.n_obs_capacity, 10.0,
+                                   iters=CONFIG5_LM["iters"], max_obs_per_lm=P_max)
+        (o_pg, _c), pg_s = timed(lambda: run(s_pg, Kl))
+    finally:
+        dist.destroy_process_group()
+    lm["nccl_1rank"] = {"backend": "nccl", "world_size": 1, "solve_s": pg_s,
+                        "cost_refined": float(ba_cost(o_pg, Kl, 10.0))}
+    gap = abs(lm["nccl_1rank"]["cost_refined"] - c1) / c1
+    lm["nccl_1rank"]["rel_gap_to_stacked"] = gap
+    check(gap <= 1e-5, f"config 5 lm: NCCL cost {lm['nccl_1rank']['cost_refined']} != stacked {c1}")
+    out["config5_lm"] = lm
+    log(f"config 5 lm axis: {json.dumps(lm)} [{card}]")
+
+    # (d) aprilslam-torch-refine --demo at its defaults, then a CLI run's export.
+    refine = {}
+    for n in (1, 8):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = refine_trajectory.main(["--demo", "--devices", str(n)])
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        refine[f"devices_{n}"] = rep
+        check(rc == 0 and rep["finite"] and rep["devices"] == n, f"refine demo: {rep}")
+        check(rep["ate_refined"] <= 0.45 * rep["ate_initial"], f"refine demo: ATE not reduced enough: {rep}")
+        want = REFINE_JAX_CPU_COST[n]
+        check(abs(rep["cost_refined"] - want) <= 0.10 * want,
+              f"refine demo: cost {rep['cost_refined']} not within 10 % of JAX's {want} at {n} shards")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, summary, wall = run_cli(["--frames", "16", "--batch", str(BATCH), "--headless", "--output-dir", "csv",
+                                     "--export-problem", "run.npz", "--device", dev.type], tmp)
+        check(rc == 0 and summary is not None and summary.get("exported_keyframes", 0) > 0,
+              f"export: the CLI returned {rc}: {summary}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = refine_trajectory.main(["--input", os.path.join(tmp, "run.npz"), "--output",
+                                         os.path.join(tmp, "refined.npz")])
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and rep["finite"] and rep["cost_refined"] <= rep["cost_initial"], f"refine --input: {rep}")
+    refine["export"] = {"cli": summary, "cli_wall_s": wall, "refine": rep}
+    out["refine"] = refine
+    log(f"refine: {json.dumps(refine)} [{card}]")
+    return out, launches
+
+
 def host_syncs(slam, chunk) -> Counter:
     """Host syncs of one step, counted by the line of the port that made them."""
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        slam.process(chunk)
-    torch.cuda.set_sync_debug_mode("default")
-    return Counter(f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
-                   for w in caught if "synchroniz" in str(w.message))
+    return sync_lines(lambda: slam.process(chunk))[1]
 
 
 def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
@@ -967,7 +1260,13 @@ def main() -> int:
         f"({ccl_timing['device_ms'][name4]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name4]:.5f} ms "
         f"(bytes) [{card}]")
 
-    # ---- 9. report --------------------------------------------------------
+    # ---- 9. the parallel package ------------------------------------------
+    t0 = time.perf_counter()
+    parallel, config3_launches = parallel_phase(params, dev, card)
+    parallel["phase_s"] = time.perf_counter() - t0
+    log(f"parallel phase: {parallel['phase_s']:.1f} s")
+
+    # ---- 10. report -------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -978,6 +1277,7 @@ def main() -> int:
         "launches_sim_cli": launches_cli,
         "launches_serve": launches_serve,
         "launches_config4": config4_launches,
+        "launches_config3": config3_launches,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -996,6 +1296,7 @@ def main() -> int:
     log(json.dumps({"options": options, "card": card}))
     log(json.dumps({"apps": apps, "card": card}))
     log(json.dumps({"config4": config4}))
+    log(json.dumps({"parallel": parallel}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -164,8 +164,15 @@ def test_interactive_run_on_a_piped_stdin(tmp_path, monkeypatch):
 
 
 def test_export_problem_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        _run(TSIM.main, SMALL + ["--device", "cpu", "--export-problem", "run.npz"], str(tmp_path))
+    """--export-problem is ported now (the name is kept from when it
+    raised): under the chain estimator the run's problem carries the
+    chaining graph's landmarks and loads in the refinement app."""
+    from aprilslam_tpu_torch.apps.refine_trajectory import load_problem
+
+    rc, summary = _run(TSIM.main, SMALL + ["--device", "cpu", "--export-problem", "run.npz"], str(tmp_path))
+    assert rc == 0 and summary["exported_problem"] == "run.npz"
+    prob, _K, tag = load_problem(str(tmp_path / "run.npz"), device="cpu")
+    assert prob.n_keyframes == summary["exported_keyframes"] > 0 and tag > 0
 
 
 def test_verify_install(capsys):

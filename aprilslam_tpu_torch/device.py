@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -14,3 +16,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them.
+    Raises when nvidia-smi fails."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--frames 64 | --reference-pool]
+    python3 chip_smoke.py [--frames 64]
 
 Phases (any failed check exits non-zero):
 1. card: name and power limit; fails without a CUDA device;
@@ -13,15 +13,17 @@ Phases (any failed check exits non-zero):
    calls, as the main path makes them, and device time from a replayed CUDA
    graph), the plain version on the main-path one, and each of the kernel's
    launches with torch.profiler;
-4. the main path: render the default 5-tag scene at 1000x1000 on the card,
-   cast to uint8, run the headline SLAM configuration in chunks of 8, and
-   check ATE against the analytic ground truth, the valid rate, the kernel's
-   launch count and that every output lives on the card;
-5. BASELINE config 2 (``bench.py``'s pgo leg): the randomized scene, the
-   two-lap loop of 96 frames at 1000x1000, the chunk-scheduled BA step with
-   the loop-closure back end off and then on; per leg an accuracy pass, two
-   timed passes (best of two), ATE, valid rate, loop edges, the kernel's
-   launches, and one step's host syncs, kernel launches and busy share;
+4. the main path: the bench's headline poses (``bench_torch.headline_poses``)
+   of the default 5-tag scene rendered at 1000x1000 on the card as uint8,
+   the headline detector and SLAM step in chunks of 8 through
+   ``SlamSystem``; ATE against the analytic ground truth, the valid rate,
+   the kernel's launch count and that every output lives on the card;
+5. BASELINE config 2 through ``bench_torch``'s pgo leg (``pgo_frames``,
+   ``pgo_run``): the randomized scene, the two-lap loop of 96 frames at
+   1000x1000, the loop-closure back end off and then on; per side an
+   accuracy pass, two timed passes (best of two), ATE, valid rate, loop
+   edges, the kernel's launches, and one step's host syncs, kernel launches
+   and busy share;
 6. every other estimator and schedule for one chunk of the main-path frames
    (``reference_chain``, ``chain_avg``, ``joint``, the frame schedule, zero
    distortion coefficients against none), and the sparse BA coupling
@@ -39,19 +41,25 @@ Phases (any failed check exits non-zero):
    distorted views of ``tests/test_calib.py`` against their truth, then the
    config-4 camera, saved as the app's ``.npz``); the 64-frame 640x480 Y4M
    clip rendered on the card and replayed through the native reader,
-   batched detection and PnP (a warm-up pass kept for accuracy, a timed
-   pass); the video app in process on that clip and calibration; and a
+   batched detection and PnP (``bench_torch.video_clip`` and
+   ``video_replay``: a warm-up pass kept for accuracy, a timed pass); the
+   video app in process on that clip and calibration; and a
    generated 1024-code family against the built-in one on 8 headline poses;
-9. the parallel package: BASELINE config 3 (``bench.py:465-522``: 8
-   sequences x 2 chunks of 8 frames at 1000x1000 through
-   ``build_parallel_slam``, a warm pass kept for accuracy, one timed pass,
+9. the parallel package: BASELINE config 3 (``bench_torch``'s multiseq
+   leg, ``bench.py:465-522``: 8 sequences x 2 chunks of 8 frames at
+   1000x1000 through ``build_parallel_slam``, a warm chunk and one timed
+   pass (the bench's 4 cut for time), each sequence's ATE over that pass,
    then one chunk with both pose graphs on); config 5 on the keyframe axis
    (10240 keyframes, 256 tags, 4 LM x 32 PCG) and the landmark axis (10240
    tags, 64 keyframes, 16384 observations, 4 LM), each at 1 and 8 shards on
    the one card, with the landmark solve once more on a single-rank NCCL
    process group; ``aprilslam-torch-refine --demo`` at its defaults at 1 and
    8 shards; a 16-frame CLI run's ``--export-problem`` refined on the card;
-10. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
+10. the port's bench (``bench_torch.main()`` in this process): the 64-frame
+   headline at batch 8 with its ATE gate at 1.0 su, and the stage split
+   (its other legs are phases 5, 8 and 9); its first line must carry every
+   headline key and name the card;
+11. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
    per kernel, the card line, and a final JSON status line.
 """
 
@@ -65,7 +73,6 @@ import json
 import logging
 import os
 import socket
-import subprocess
 import sys
 import tempfile
 import threading
@@ -78,24 +85,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HEADLINE = dict(
-    estimator="ba", ba_schedule="chunk", graph_capacity=16, ba_keyframes=16,
-    ba_obs=512, init_joint_iters=3, ba_chunk_iters=4, pnp_iters=3,
-)
-CONFIG2 = dict(estimator="ba", ba_schedule="chunk", graph_capacity=16, init_joint_iters=3,
-               ba_chunk_iters=4, pnp_iters=3)
-# bench.py:400-404, the two-lap loop of config 2
-WAYPOINTS = np.array([
-    [0.0, 0.0, 10.0], [60.0, 0.0, 10.0], [60.0, 2.0, 12.0],
-    [0.0, 0.0, 10.0], [2.0, 1.0, 11.0], [60.0, 0.0, 10.0],
-    [60.0, 2.0, 12.0], [0.0, 0.0, 10.0],
-])
-CONFIG2_FRAMES = 96
-# BASELINE config 3 (bench.py:465-522): 8 sequences, 2 chunks of 8 frames
-# each, the headline step.
+# BASELINE config 3 (bench.py:465-522): 8 sequences of the headline step;
+# the keywords of the chunk run with both pose graphs on.
 CONFIG3 = dict(estimator="ba", ba_schedule="chunk", init_joint_iters=3, ba_chunk_iters=4, pnp_iters=3,
                graph_capacity=16)
-CONFIG3_SEQ, CONFIG3_CHUNKS = 8, 2
+CONFIG3_SEQ = 8
 # BASELINE config 5 (tools/scaling_bench.py --mode kf and --mode lm).
 CONFIG5_KF = dict(keyframes=10240, landmarks=256, iters=4, cg_iters=32)
 CONFIG5_LM = dict(landmarks=10240, keyframes=64, obs=16384, iters=4)
@@ -109,6 +103,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # clip's ok tag poses, on the JAX-rendered frames on the CPU
 # (tests/parity_config4.py; the JAX package gives 0.1283475, 162 poses each).
 CONFIG4_CPU_T_ERR_MEDIAN = 0.12829819321632385
+# Phase 10: bench_torch.py's headline on 64 frames and its stage split; the
+# ATE ceiling is the 64-frame pool's bound (it gave 0.5250 su).
+BENCH_KNOBS = dict(BENCH_FRAMES="64", BENCH_PASSES="1", BENCH_BATCH="8", BENCH_PGO="0", BENCH_VIDEO="0",
+                   BENCH_MULTISEQ="0", BENCH_STAGES="1", BENCH_ATE_MAX="1.0")
+# bench.py's headline keys, less device_fallback, plus the port's card and pool.
+BENCH_HEADLINE_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "ate_rmse_sim_units", "ate_rmse_baseline", "ate_gate",
+    "valid_pose_rate", "invalid_frames", "batch", "batch_choice", "batch_sweep_fps", "resolution",
+    "frames_timed", "frames_distinct", "graph_capacity", "compile_s", "compile_first_program_s", "device",
+    "card", "pool",
+}
 
 
 def log(msg: str) -> None:
@@ -118,14 +123,6 @@ def log(msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(res.returncode == 0, f"nvidia-smi: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def scipy_labels(trinary: np.ndarray) -> np.ndarray:
@@ -233,19 +230,6 @@ def time_cuda_graph(fn, reps: int = 20, replays: int = 20) -> float:
     return time_cuda(graph.replay, replays) / reps
 
 
-def render_chunks(cfg, cam, traj, n: int, dev) -> list:
-    """uint8 frames of ``traj`` rendered on the card, in chunks of BATCH."""
-    from aprilslam_tpu_torch.sim import render_frames, scene_tensors
-
-    scene = scene_tensors(cfg, device=dev)
-    return [
-        torch.clamp(render_frames(scene, traj.positions[i:i + BATCH], traj.rotations[i:i + BATCH],
-                                  cam.inv_matrix, RES, RES, 2, device=dev) * 255.0, 0, 255
-                    ).to(torch.uint8)
-        for i in range(0, n, BATCH)
-    ]
-
-
 def check_outputs(outs, n: int, what: str) -> None:
     for o in outs:
         for name, v in vars(o).items():
@@ -257,49 +241,37 @@ def check_outputs(outs, n: int, what: str) -> None:
 
 
 def config2_phase(params, dev, card: str) -> tuple[dict, dict]:
-    """BASELINE config 2, pgo off then on (``bench.py:381-462`` on the port).
-    Returns the report and the CCL launches of each leg's accuracy pass."""
+    """BASELINE config 2, pgo off then on, through ``bench_torch``'s config-2
+    leg (``bench.py:381-462`` on the port). Returns the report and the CCL
+    launches of each side's accuracy pass."""
+    from bench_torch import pgo_frames, pgo_run
+
     from aprilslam_tpu_torch.eval import ate_eval
-    from aprilslam_tpu_torch.geometry import PinholeCamera
     from aprilslam_tpu_torch.ops import ccl
-    from aprilslam_tpu_torch.sim import DEFAULT_SCENE, SceneConfig, randomize_scene, trajectory
-    from aprilslam_tpu_torch.slam import SlamSystem
+    from aprilslam_tpu_torch.sim import DEFAULT_SCENE
 
     with open(DEFAULT_SCENE) as f:
-        cfg = SceneConfig.from_dict(randomize_scene(json.load(f), 0.1, seed=7))
-    cam = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
-    traj = trajectory.scripted_waypoints(CONFIG2_FRAMES, WAYPOINTS)
-    chunks = render_chunks(cfg, cam, traj, CONFIG2_FRAMES, dev)
-    torch.cuda.synchronize()
-    out = {"frames": CONFIG2_FRAMES, "trajectory": "two-lap loop", "scene": "randomized(0.1, seed 7)",
+        cfg, cam, traj, chunks = pgo_frames(json.load(f), RES, BATCH, dev)
+    n_frames = len(traj)
+    out = {"frames": n_frames, "trajectory": "two-lap loop", "scene": "randomized(0.1, seed 7)",
            "batch": BATCH, "res": RES, "card": card}
     launches = {}
     for pgo in (False, True):
         leg = "pgo_on" if pgo else "pgo_off"
-        slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, detector_params=params, device=dev,
-                          pgo=pgo, **CONFIG2)
         ccl.ccl_launches = 0
-        t0 = time.perf_counter()
-        outs = [slam.process(c) for c in chunks]  # accuracy pass, also the warm-up
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches[leg] = ccl.ccl_launches
-        check(launches[leg] == len(chunks), f"config 2 {leg}: ccl launches {launches[leg]} != {len(chunks)}")
-        check_outputs(outs, CONFIG2_FRAMES, f"config 2 {leg}")
+        outs, dt, step, state = pgo_run(cfg, cam, chunks, params, pgo, dev)
+        # An accuracy pass and two timed passes, one launch per chunk each.
+        launches[leg] = ccl.ccl_launches // 3
+        check(ccl.ccl_launches == 3 * len(chunks),
+              f"config 2 {leg}: ccl launches {ccl.ccl_launches} != 3 x {len(chunks)}")
+        check_outputs(outs, n_frames, f"config 2 {leg}")
         ate, vrate, n_invalid, _conf = ate_eval(cfg, traj.positions, traj.rotations, outs)
         loop_edges = int(outs[-1].loop_closures[-1])
-        dt = float("inf")
-        for _ in range(2):  # two timed passes, best of two, as bench.py does
-            t0 = time.perf_counter()
-            for c in chunks:
-                slam.process(c)
-            torch.cuda.synchronize()
-            dt = min(dt, time.perf_counter() - t0)
-        fps = CONFIG2_FRAMES / dt
-        breakdown = time_breakdown([chunks[-1]], cfg, cam, params, slam, 1e3 * BATCH / fps)
+        fps = n_frames / dt
+        breakdown = time_breakdown([chunks[-1]], cfg, cam, params, lambda c: step(state, c)[1],
+                                   1e3 * BATCH / fps)
         out[leg] = {"ate": ate, "valid_rate": vrate, "n_invalid": n_invalid, "loop_edges": loop_edges,
-                    "fps": fps, "first_pass_s": first_s, "ccl_launches_per_pass": launches[leg],
-                    "breakdown": breakdown}
+                    "fps": fps, "ccl_launches_per_pass": launches[leg], "breakdown": breakdown}
         log(f"config 2 {leg}: ATE {ate:.4f} su, valid {vrate:.4f}, loop edges {loop_edges}, "
             f"{fps:.3f} fps, {breakdown['host_syncs']} host syncs and "
             f"{breakdown['kernel_launches']} kernel launches per chunk [{card}]")
@@ -310,20 +282,21 @@ def config2_phase(params, dev, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
-def options_phase(chunk, cfg, cam, params, dev, headline_ba) -> dict:
+def options_phase(chunk, cfg, cam, params, dev, headline_ba, headline: dict) -> dict:
     """Every other estimator and schedule on one chunk of the main-path
-    frames, and the sparse BA coupling against the dense one."""
+    frames (``headline``: the main path's step keywords), and the sparse BA
+    coupling against the dense one."""
     from aprilslam_tpu_torch.geometry import se3_exp
     from aprilslam_tpu_torch.slam import ba_optimize, build_slam_step
 
     res = {}
     runs = {
-        "reference_chain": dict(HEADLINE, estimator="reference_chain"),
-        "chain_avg": dict(HEADLINE, estimator="chain_avg"),
-        "joint": dict(HEADLINE, estimator="joint"),
-        "ba_frame": dict(HEADLINE, ba_schedule="frame"),
-        "ba_chunk": dict(HEADLINE),
-        "ba_chunk_zero_dist": dict(HEADLINE, dist_coeffs=[0.0, 0.0, 0.0, 0.0, 0.0]),
+        "reference_chain": dict(headline, estimator="reference_chain"),
+        "chain_avg": dict(headline, estimator="chain_avg"),
+        "joint": dict(headline, estimator="joint"),
+        "ba_frame": dict(headline, ba_schedule="frame"),
+        "ba_chunk": dict(headline),
+        "ba_chunk_zero_dist": dict(headline, dist_coeffs=[0.0, 0.0, 0.0, 0.0, 0.0]),
     }
     outs = {}
     for name, kw in runs.items():
@@ -449,7 +422,7 @@ def apps_phase(main_chunks, dev, card: str) -> tuple[dict, int, int]:
         }
         # One more step's host syncs on the last chunk. No profiled step as in
         # phases 4 and 5: at this step's launch count the profiler takes minutes.
-        syncs = host_syncs(slam, frames[-1])
+        syncs = host_syncs(slam.process, frames[-1])
         out["sim_cli"]["host_syncs"] = sum(syncs.values())
         out["sim_cli"]["top_sync_lines"] = syncs.most_common(8)
         log(f"apps cli: {json.dumps(summary)}; CLI {summary['fps']} fps incl. host loop "
@@ -515,7 +488,7 @@ def apps_phase(main_chunks, dev, card: str) -> tuple[dict, int, int]:
         "max_pose_gap": gap, "reset_max_pose_gap": reset_gap, "ccl_launches": launches_serve,
         "valid": [int(np.sum(r["valid"])) for r in reps], "malformed_error": bad["error"],
     }
-    syncs = host_syncs(ref, u8[-1])
+    syncs = host_syncs(ref.process, u8[-1])
     out["serve"]["host_syncs"] = sum(syncs.values())
     out["serve"]["top_sync_lines"] = syncs.most_common(8)
     log(f"apps serve: latency {out['serve']['latency_ms']} ms against the in-process step "
@@ -558,21 +531,23 @@ def distorted_views(K: np.ndarray, k1: float, k2: float, obj: np.ndarray, w: int
 def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[dict, dict, torch.Tensor]:
     """BASELINE config 4, the real-camera path: the native runtime, Zhang
     calibration on the card, the 640x480 Y4M replay of ``bench.py:525-584``
-    (native reader -> batched detect -> PnP), the video app in process on
+    through ``bench_torch``'s config-4 pieces (native reader -> batched
+    detect -> PnP), the video app in process on
     the calibration it wrote, and a generated 1024-code family. Returns the
     report, the CCL launches of each run, and the replay's first trinary map
     (8x240x320) for the kernel's timing."""
+    from bench_torch import headline_params, video_clip, video_replay
+
     from aprilslam_tpu_torch.apps import video_detection
     from aprilslam_tpu_torch.calib import board_points, calibrate_camera
-    from aprilslam_tpu_torch.detect import DetectorParams, TagDetector
+    from aprilslam_tpu_torch.detect import TagDetector
     from aprilslam_tpu_torch.detect.threshold import adaptive_threshold_with_levels, decimate, to_grayscale
     from aprilslam_tpu_torch.families.generate import generate_family
     from aprilslam_tpu_torch.geometry import PinholeCamera
     from aprilslam_tpu_torch.ops import ccl
     from aprilslam_tpu_torch.pose import poses_from_detections
     from aprilslam_tpu_torch.runtime import Y4MReader, render_frames_native
-    from aprilslam_tpu_torch.sim import (SceneConfig, camera_to_tag_transforms, render_frames,
-                                         scene_tensors, trajectory)
+    from aprilslam_tpu_torch.sim import SceneConfig, camera_to_tag_transforms, render_frames, scene_tensors
 
     out = {"card": card, "runtime_build_s": runtime_build_s}
     cfg = SceneConfig.from_file()
@@ -624,53 +599,26 @@ def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[di
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "camera_calibration_parameters.npz")
         res4.save_npz(npz)
-        # (c) the clip: bench.py:538-556, rendered on the card.
-        n_frames = 64
-        traj = trajectory.scripted_waypoints(n_frames, np.array([[0.0, 0.0, 20.0], [8.0, 2.0, 5.0],
-                                                                 [0.0, -2.0, 15.0]]))
-        frames = torch.clamp(render_frames(scene, traj.positions, traj.rotations, cam.inv_matrix, H4, W4, 2,
-                                           device=dev) * 255.0, 0, 255).to(torch.uint8).cpu().numpy()
+        # (c) the clip and (d) its replay through bench_torch's config-4 leg
+        # (bench.py:538-581): a warm-up pass that also keeps the poses for
+        # accuracy, then a timed pass.
         clip = os.path.join(tmp, "bench_clip.y4m")
-        with open(clip, "wb") as f:
-            f.write(f"YUV4MPEG2 W{W4} H{H4} F30:1 Cmono\n".encode())
-            for fr in frames:
-                f.write(b"FRAME\n" + fr.tobytes())
-
-        # (d) the replay, as bench.py:563-581: a warm-up pass that also
-        # keeps the poses for accuracy, then a timed pass.
-        params = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16)
-        detector = TagDetector(cfg.family, params, device=dev)
-        K = torch.as_tensor(cam.matrix, device=dev)
-
-        def replay(keep=None):
-            n, dets = 0, 0
-            with Y4MReader(clip) as r:
-                while True:
-                    b = r.read_batch(BATCH)
-                    if b.shape[0] == 0:
-                        break
-                    det = detector.detect(torch.from_numpy(b).to(dev))
-                    T, okp, _rms, _seed, _alt = poses_from_detections(det, K, cfg.tag_size_inner)
-                    dets += int(okp.sum())
-                    if keep is not None:
-                        keep.append((n, det.ids.cpu().numpy(), T.cpu().numpy(), okp.cpu().numpy()))
-                    n += int(b.shape[0])
-            return n, dets
-
+        _cam, traj = video_clip(cfg, dev, clip)
+        n_frames = len(traj)
+        replay, detector, K = video_replay(clip, cfg, cam, dev, BATCH)
         kept = []
         ccl.ccl_launches = 0
         replay(kept)
         launches_warm = ccl.ccl_launches
-        torch.cuda.synchronize()
         ccl.ccl_launches = 0
         t0 = time.perf_counter()
         n, dets = replay()
-        torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches_replay = ccl.ccl_launches
         gt = camera_to_tag_transforms(scene.tag_pos.cpu(), scene.tag_rot.cpu(), torch.as_tensor(traj.positions),
                                       torch.as_tensor(traj.rotations)).numpy()
         index = {int(t): k for k, t in enumerate(cfg.tag_ids())}
+        kept = [(first, det.ids.cpu().numpy(), T.cpu().numpy(), ok.cpu().numpy()) for first, det, T, ok in kept]
         err = np.array([np.linalg.norm(T[f, d, :3, 3] - gt[first + f, index[int(ids[f, d])], :3, 3])
                         for first, ids, T, ok in kept for f, d in zip(*np.nonzero(ok))])
         out["replay"] = {"resolution": f"{W4}x{H4}", "frames": n, "fps": n / dt, "vs_realtime_30fps": n / dt / 30.0,
@@ -705,9 +653,9 @@ def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[di
         check(out["replay"]["t_err_median"] <= 1.1 * CONFIG4_CPU_T_ERR_MEDIAN,
               f"config 4: median translation error {out['replay']['t_err_median']} > 1.1 x "
               f"{CONFIG4_CPU_T_ERR_MEDIAN}")
-        dec = decimate(to_grayscale(torch.from_numpy(frames[:BATCH]).to(dev)), params.quad_decimate)
-        first_map = adaptive_threshold_with_levels(dec, tile=params.tile,
-                                                   min_contrast=params.min_contrast)[0].contiguous()
+        p = detector.params
+        dec = decimate(to_grayscale(on_card[0]), p.quad_decimate)
+        first_map = adaptive_threshold_with_levels(dec, tile=p.tile, min_contrast=p.min_contrast)[0].contiguous()
 
         # (e) the video app in this process, on the calibration it wrote.
         lines = []
@@ -748,7 +696,7 @@ def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[di
     fam = generate_family(1024, seed=0)
     gen_s = time.perf_counter() - t0
     cam_h = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
-    hp = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16, max_boundary=8192)
+    hp = headline_params()
     ids = {}
     ccl.ccl_launches = 0
     for name, family in (("builtin", None), ("generated", fam)):
@@ -857,6 +805,7 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     and a CLI run's ``--export-problem`` refined on the card. Returns the
     report and the CCL launches of config 3."""
     import torch.distributed as dist
+    from bench_torch import Run, bench_multiseq_leg, multiseq_chunks
 
     from aprilslam_tpu_torch.apps import refine_trajectory
     from aprilslam_tpu_torch.eval import ate_eval
@@ -874,62 +823,43 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     out = {"card": card}
     launches = {}
 
-    # (a) config 3: 8 sequences x 2 chunks of 8 frames at 1000x1000.
+    # (a) config 3 through bench_torch's leg: 8 sequences x 2 chunks of 8
+    # frames at 1000x1000, a warm chunk and one timed pass (the bench's 4
+    # are cut for time: each pass is 16 steps).
     cfg = SceneConfig.from_file()
     cam = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
-    trajs = [[trajectory.monte_carlo(BATCH, seed=100 + 10 * s + k) for k in range(CONFIG3_CHUNKS)]
-             for s in range(CONFIG3_SEQ)]
-    t0 = time.perf_counter()
-    per_seq = [render_chunks(cfg, cam, trajectory.Trajectory(
-        np.concatenate([t.positions for t in tr]), np.concatenate([t.rotations for t in tr])),
-        BATCH * CONFIG3_CHUNKS, dev) for tr in trajs]
-    chunks3 = [torch.stack([per_seq[s][k] for s in range(CONFIG3_SEQ)]) for k in range(CONFIG3_CHUNKS)]
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
-    mesh = make_mesh(CONFIG3_SEQ, axis="data", device=dev)
-    pstep, init_states, _shard = build_parallel_slam(mesh, cfg.family, cam, cfg.tag_size_inner,
-                                                     detector_params=params, **CONFIG3)
-    states = init_states()
+    passes = 1
     ccl.ccl_launches = 0
-    warm = []
-    for c in chunks3:  # the warm pass, kept for accuracy
-        states, o = pstep(states, c)
-        warm.append(o)
-    torch.cuda.synchronize()
-    launches["warm_pass"] = ccl.ccl_launches
-    ccl.ccl_launches = 0
-    t0 = time.perf_counter()
-    timed_outs = []
-    for c in chunks3:
-        states, o = pstep(states, c)
-        timed_outs.append(o)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches["per_pass"] = ccl.ccl_launches
-    frames_timed = CONFIG3_SEQ * CONFIG3_CHUNKS * BATCH
-    valid = torch.cat([o.valid.reshape(-1) for o in timed_outs])
-    for o in timed_outs + warm:
+    c3, outs = bench_multiseq_leg(cfg, params, RES, dev, Run(float("inf")), n_seq=CONFIG3_SEQ, batch=BATCH,
+                                  passes=passes)
+    n_chunks = (len(outs) - 1) // passes
+    launches["leg"] = ccl.ccl_launches
+    check(launches["leg"] == CONFIG3_SEQ * (1 + n_chunks * passes),
+          f"config 3: CCL launches {launches['leg']} != {CONFIG3_SEQ} x {1 + n_chunks * passes}")
+    launches["per_pass"] = CONFIG3_SEQ * n_chunks
+    for o in outs:
         for name, v in vars(o).items():
             check(v.device.type == "cuda", f"config 3: output {name} is on {v.device}")
+    timed_outs, last_pass = outs[1:], outs[-n_chunks:]
+    trajs = [[trajectory.monte_carlo(BATCH, seed=100 + 10 * s + k) for k in range(n_chunks)]
+             for s in range(CONFIG3_SEQ)]
     seq_outs = lambda outs, s: [SlamOutputs(**{k: v[s] for k, v in vars(o).items()}) for o in outs]  # noqa: E731
     ates = [ate_eval(cfg, np.concatenate([t.positions for t in trajs[s]]),
-                     np.concatenate([t.rotations for t in trajs[s]]), seq_outs(warm, s))[0]
+                     np.concatenate([t.rotations for t in trajs[s]]), seq_outs(last_pass, s))[0]
             for s in range(CONFIG3_SEQ)]
-    c3 = {"sequences": CONFIG3_SEQ, "batch_per_seq": BATCH, "chunks": CONFIG3_CHUNKS, "resolution": RES,
-          "timed_passes": 1, "aggregate_fps": frames_timed / dt, "frames_timed": frames_timed,
-          "valid_rate": float(valid.float().mean()), "valid_rate_last_step": float(timed_outs[-1].valid.float().mean()),
-          "ccl_launches_per_pass": launches["per_pass"], "ccl_launches_warm_pass": launches["warm_pass"],
-          "ate_per_sequence_warm_pass": ates, "render_s": render_s}
+    valid = torch.cat([o.valid.reshape(-1) for o in timed_outs])
+    c3.update(chunks=n_chunks, timed_passes=passes, valid_rate_last_step=c3["valid_rate"],
+              valid_rate=float(valid.float().mean()), ccl_launches_per_pass=launches["per_pass"],
+              ate_per_sequence_last_pass=ates)
     check(bool(torch.isfinite(torch.cat([o.poses[o.valid] for o in timed_outs])).all()),
           "config 3: a valid pose is not finite")
     check(c3["valid_rate"] >= 0.95, f"config 3: valid rate {c3['valid_rate']} < 0.95")
-    check(launches["per_pass"] == CONFIG3_SEQ * CONFIG3_CHUNKS,
-          f"config 3: CCL launches {launches['per_pass']} != {CONFIG3_SEQ * CONFIG3_CHUNKS}")
     # One chunk with both pose graphs on (the production composition).
-    pstep_pgo, init_pgo, _ = build_parallel_slam(mesh, cfg.family, cam, cfg.tag_size_inner,
-                                                 detector_params=params, pgo=True, **CONFIG3)
+    chunk0 = multiseq_chunks(cfg, cam, RES, dev, CONFIG3_SEQ, BATCH)[0]
+    pstep_pgo, init_pgo, _ = build_parallel_slam(make_mesh(CONFIG3_SEQ, axis="data", device=dev), cfg.family, cam,
+                                                 cfg.tag_size_inner, detector_params=params, pgo=True, **CONFIG3)
     ccl.ccl_launches = 0
-    (st_pgo, o_pgo), pgo_s = timed(lambda: pstep_pgo(init_pgo(), chunks3[0]))
+    (st_pgo, o_pgo), pgo_s = timed(lambda: pstep_pgo(init_pgo(), chunk0))
     launches["pgo_chunk"] = ccl.ccl_launches
     c3["pgo_chunk"] = {"valid_rate": float(o_pgo.valid.float().mean()), "s": pgo_s,
                        "finite": bool(torch.isfinite(o_pgo.poses[o_pgo.valid]).all()),
@@ -938,7 +868,7 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
           f"config 3 pgo: {c3['pgo_chunk']}")
     check(c3["pgo_chunk"]["pgo_frames"] == [BATCH] * CONFIG3_SEQ, f"config 3 pgo: {c3['pgo_chunk']}")
     out["config3"] = c3
-    log(f"config 3: {c3['aggregate_fps']:.3f} aggregate fps over {frames_timed} frames, valid "
+    log(f"config 3: {c3['aggregate_fps']:.3f} aggregate fps over {c3['frames_timed']} frames, valid "
         f"{c3['valid_rate']:.4f}, {launches['per_pass']} CCL launches per pass, ATE per sequence "
         f"{[round(a, 4) for a in ates]}; pgo chunk valid {c3['pgo_chunk']['valid_rate']:.4f} in {pgo_s:.2f} s [{card}]")
 
@@ -1049,12 +979,56 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
-def host_syncs(slam, chunk) -> Counter:
-    """Host syncs of one step, counted by the line of the port that made them."""
-    return sync_lines(lambda: slam.process(chunk))[1]
+def bench_phase(card: str, kind: str) -> dict:
+    """``bench_torch.main()`` in this process with BENCH_KNOBS (every other
+    BENCH_ knob unset). Returns its first and last JSON lines and the CCL
+    launches of the run."""
+    import bench_torch
+    from aprilslam_tpu_torch.ops import ccl
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(BENCH_KNOBS)
+    buf = io.StringIO()
+    try:
+        ccl.ccl_launches = 0
+        with contextlib.redirect_stdout(buf):
+            rc = bench_torch.main()
+        launches = ccl.ccl_launches
+    finally:
+        for k in BENCH_KNOBS:
+            del os.environ[k]
+        os.environ.update(saved)
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    check(rc == 0 and len(lines) >= 2, f"bench: exit code {rc}, {len(lines)} JSON lines")
+    first, last = lines[0], lines[-1]
+    missing = BENCH_HEADLINE_KEYS - set(first)
+    check(not missing, f"bench: the headline line lacks {sorted(missing)}")
+    check(set(first) <= set(last), "bench: the last line lacks headline keys")
+    check(first["device"] == kind and first["card"] == card, f"bench: device {first['device']!r}, card {first['card']!r}")
+    n_chunks = int(BENCH_KNOBS["BENCH_FRAMES"]) // BATCH
+    check(first["frames_timed"] == n_chunks * BATCH * int(BENCH_KNOBS["BENCH_PASSES"]) and first["batch"] == BATCH,
+          f"bench: frames_timed {first['frames_timed']} at batch {first['batch']}")
+    check(first["ate_gate"]["pass"] and first["valid_pose_rate"] >= 0.9, f"bench: ATE gate {first['ate_gate']}, "
+          f"ATE {first['ate_rmse_sim_units']}, valid {first['valid_pose_rate']}")
+    check("extras_failed" not in last and "thr_ccl" in last.get("stage_ms_per_frame", {}),
+          f"bench: stages {last.get('stage_ms_per_frame')}, failed {last.get('extras_failed')}")
+    # One launch per step (the first, the sweep's, the accuracy and timed
+    # passes) and per call of the stage split's three timed prefixes (2
+    # warm-up calls and 8 reps each).
+    want = 1 + min(n_chunks, 256 // BATCH) + n_chunks * (1 + int(BENCH_KNOBS["BENCH_PASSES"])) + 3 * (2 + 8)
+    check(launches == want, f"bench: {launches} CCL launches, expected {want}")
+    return {"first": first, "last": last, "ccl_launches": launches}
 
 
-def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
+def host_syncs(process, chunk) -> Counter:
+    """Host syncs of one step, ``process(chunk)``, counted by the line of the
+    port that made them."""
+    return sync_lines(lambda: process(chunk))[1]
+
+
+def time_breakdown(chunks, cfg, cam, params, process, step_ms: float) -> dict:
     """Where a chunk's time goes: the detector and PnP alone (host clock,
     synchronised, mean over the chunks), one profiled step's kernel time,
     kernel launches and busiest kernels (busy share = kernel time / step
@@ -1081,13 +1055,13 @@ def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
     dets = [detector.detect(c) for c in chunks]
     pnp_ms = mean_ms(lambda d: poses_from_detections(d, K, cfg.tag_size_inner, iters=3), dets)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        slam.process(chunks[0])
+        process(chunks[0])
         torch.cuda.synchronize()
     rows = prof.key_averages()
     kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    syncs = host_syncs(slam, chunks[0])
+    syncs = host_syncs(process, chunks[0])
     return {
         "step_ms": step_ms,
         "detect_ms": detect_ms,
@@ -1104,30 +1078,30 @@ def time_breakdown(chunks, cfg, cam, params, slam, step_ms: float) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=64, help="main-path frames (multiple of 8)")
-    ap.add_argument("--reference-pool", action="store_true",
-                    help="run the JAX package's own 512 headline poses instead of "
-                         "monte_carlo(--frames, seed=3)")
+    ap.add_argument("--frames", type=int, default=64,
+                    help="main-path frames (multiple of 8); the bench's poses for that count: at 512 the JAX "
+                         "bench's own, else monte_carlo(--frames, seed=3)")
     args = ap.parse_args()
-    if args.reference_pool:
-        args.frames = 512
     check(args.frames % BATCH == 0 and args.frames > 0, "--frames must be a positive multiple of 8")
 
     # ---- 1. card ----------------------------------------------------------
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    from aprilslam_tpu_torch.device import card_line
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
-    from aprilslam_tpu_torch.detect import DetectorParams
+    from bench_torch import Knobs, headline_params, headline_poses, render_u8
+
     from aprilslam_tpu_torch.detect.threshold import (
         adaptive_threshold_with_levels, decimate, to_grayscale)
     from aprilslam_tpu_torch.eval import ate_eval
     from aprilslam_tpu_torch.geometry import PinholeCamera
     from aprilslam_tpu_torch.ops import ccl
-    from aprilslam_tpu_torch.sim import SceneConfig, render_frames, scene_tensors, trajectory
+    from aprilslam_tpu_torch.sim import SceneConfig, scene_tensors
     from aprilslam_tpu_torch.slam import SlamSystem
 
     dev = torch.device("cuda")
@@ -1146,12 +1120,14 @@ def main() -> int:
     cfg = SceneConfig.from_file()
     cam = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
     scene = scene_tensors(cfg, device=dev)
-    traj = trajectory.reference_pool() if args.reference_pool else trajectory.monte_carlo(args.frames, seed=3)
+    traj, pool_label = headline_poses(args.frames)
     t0 = time.perf_counter()
-    chunks = render_chunks(cfg, cam, traj, args.frames, dev)
+    chunks = list(render_u8(scene, traj, cam, RES, RES, dev, BATCH).split(BATCH))
     torch.cuda.synchronize()
     log(f"render: {args.frames} frames {RES}x{RES} in {time.perf_counter() - t0:.2f} s")
-    params = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16, max_boundary=8192)
+    # The bench's headline: its detector and its step at the default knobs.
+    params = headline_params()
+    headline = Knobs.from_env(False, env={}).step_kwargs()
 
     def trinary_of(frames):
         dec = decimate(to_grayscale(frames), params.quad_decimate)
@@ -1207,7 +1183,7 @@ def main() -> int:
 
     # ---- 4. main path -----------------------------------------------------
     slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, detector_params=params,
-                      device=dev, **HEADLINE)
+                      device=dev, **headline)
     ccl.ccl_launches = 0
     t0 = time.perf_counter()
     outs = [slam.process(c) for c in chunks]
@@ -1228,7 +1204,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fps = args.frames / (time.perf_counter() - t0)
     log(f"steady state: {fps:.3f} fps (batch {BATCH}, {RES}x{RES}) [{card}]")
-    breakdown = time_breakdown(chunks, cfg, cam, params, slam, 1e3 * BATCH / fps)
+    breakdown = time_breakdown(chunks, cfg, cam, params, slam.process, 1e3 * BATCH / fps)
     log(f"breakdown per chunk of {BATCH}: {json.dumps(breakdown)} [{card}]")
     headline_ba = slam.ba_state
 
@@ -1236,7 +1212,7 @@ def main() -> int:
     config2, config2_launches = config2_phase(params, dev, card)
 
     # ---- 6. the other estimators and schedules, the sparse coupling -------
-    options = options_phase(chunks[0], cfg, cam, params, dev, headline_ba)
+    options = options_phase(chunks[0], cfg, cam, params, dev, headline_ba, headline)
     log(f"options: {json.dumps(options)} [{card}]")
 
     # ---- 7. the apps -------------------------------------------------------
@@ -1266,7 +1242,14 @@ def main() -> int:
     parallel["phase_s"] = time.perf_counter() - t0
     log(f"parallel phase: {parallel['phase_s']:.1f} s")
 
-    # ---- 10. report -------------------------------------------------------
+    # ---- 10. the port's bench ----------------------------------------------
+    t0 = time.perf_counter()
+    bench = bench_phase(card, kind)
+    bench["phase_s"] = time.perf_counter() - t0
+    log(f"bench phase: {bench['phase_s']:.1f} s; headline {bench['first']['value']} fps, ATE "
+        f"{bench['first']['ate_rmse_sim_units']} su, stages {bench['last']['stage_ms_per_frame']} [{card}]")
+
+    # ---- 11. report -------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -1278,6 +1261,7 @@ def main() -> int:
         "launches_serve": launches_serve,
         "launches_config4": config4_launches,
         "launches_config3": config3_launches,
+        "launches_bench": bench["ccl_launches"],
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -1289,7 +1273,7 @@ def main() -> int:
         "library_ms": None,
     }]
     log(json.dumps({"main_path": {
-        "frames": args.frames, "pool": "reference" if args.reference_pool else "monte_carlo_numpy",
+        "frames": args.frames, "pool": pool_label,
         "ate": ate, "valid_rate": vrate, "n_invalid": n_invalid,
         "confidence": conf, "fps": fps, "breakdown": breakdown, "card": card}}))
     log(json.dumps({"config2": config2}))
@@ -1297,6 +1281,7 @@ def main() -> int:
     log(json.dumps({"apps": apps, "card": card}))
     log(json.dumps({"config4": config4}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"bench": bench, "card": card}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

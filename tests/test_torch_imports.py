@@ -53,7 +53,7 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py", "tools/ccl_ab.py"])
+@pytest.mark.parametrize("rel", PORT_FILES + ["bench_torch.py", "chip_smoke.py", "tools/ccl_ab.py"])
 def test_no_jax_import(rel):
     roots = _imported_roots(ROOT / rel)
     assert not roots & {"jax", "jaxlib", "aprilslam_tpu"}, (rel, roots)

@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import torch
+from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..families import TagFamily, get_family
@@ -61,30 +62,37 @@ def detect_fn(family: str | TagFamily = "tagStandard41h12",
     p = params or DetectorParams()
 
     def run(frames: torch.Tensor) -> Detections:
-        gray = to_grayscale(frames)
-        dec = decimate(gray, p.quad_decimate)
-        trinary, level = adaptive_threshold_with_levels(dec, tile=p.tile, min_contrast=p.min_contrast)
-        labels = connected_components(trinary.contiguous())
-        quads = quad_candidates(
-            trinary, labels, dec, p.quad_decimate, level,
-            max_clusters=p.max_clusters,
-            max_quads=p.max_quads,
-            pts_per_quad=p.pts_per_quad,
-            min_cluster_pts=p.min_cluster_pts,
-            min_side=p.min_side,
-            refine_iters=p.refine_iters,
-            max_fit_err=p.max_fit_err,
-            max_boundary=p.max_boundary,
-        )
-        det = decode_quads(
-            gray, quads, ft,
-            max_hamming=p.max_hamming,
-            min_level_contrast=p.min_level_contrast,
-            max_detections=p.max_detections,
-        )
+        # One profiler range per stage, as the JAX detector's named scopes:
+        # tools/profile_step_torch.py groups device time by them.
+        with record_function("stage_threshold"):
+            gray = to_grayscale(frames)
+            dec = decimate(gray, p.quad_decimate)
+            trinary, level = adaptive_threshold_with_levels(dec, tile=p.tile, min_contrast=p.min_contrast)
+        with record_function("stage_ccl"):
+            labels = connected_components(trinary.contiguous())
+        with record_function("stage_quads"):
+            quads = quad_candidates(
+                trinary, labels, dec, p.quad_decimate, level,
+                max_clusters=p.max_clusters,
+                max_quads=p.max_quads,
+                pts_per_quad=p.pts_per_quad,
+                min_cluster_pts=p.min_cluster_pts,
+                min_side=p.min_side,
+                refine_iters=p.refine_iters,
+                max_fit_err=p.max_fit_err,
+                max_boundary=p.max_boundary,
+            )
+        with record_function("stage_decode"):
+            det = decode_quads(
+                gray, quads, ft,
+                max_hamming=p.max_hamming,
+                min_level_contrast=p.min_level_contrast,
+                max_detections=p.max_detections,
+            )
         if p.refine_edges and p.quad_decimate > 1:
-            refined = refine_corners(gray, det.corners, det.valid,
-                                     ns=p.refine_samples, half_range=p.refine_range)
+            with record_function("stage_refine"):
+                refined = refine_corners(gray, det.corners, det.valid,
+                                         ns=p.refine_samples, half_range=p.refine_range)
             det = replace(det, corners=refined)
         return det
 

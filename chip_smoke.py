@@ -51,15 +51,22 @@ Phases (any failed check exits non-zero):
    pass (the bench's 4 cut for time), each sequence's ATE over that pass,
    then one chunk with both pose graphs on); config 5 on the keyframe axis
    (10240 keyframes, 256 tags, 4 LM x 32 PCG) and the landmark axis (10240
-   tags, 64 keyframes, 16384 observations, 4 LM), each at 1 and 8 shards on
-   the one card, with the landmark solve once more on a single-rank NCCL
-   process group; ``aprilslam-torch-refine --demo`` at its defaults at 1 and
-   8 shards; a 16-frame CLI run's ``--export-problem`` refined on the card;
+   tags, 64 keyframes, 16384 observations, 4 LM) through
+   ``tools/scaling_bench_torch.py`` (8 shards on the one card against 1
+   shard, and against ``ba_optimize`` with the sparse coupling), with the
+   landmark solve once more on a single-rank NCCL process group;
+   ``aprilslam-torch-refine --demo`` at its defaults at 1 and 8 shards; a
+   16-frame CLI run's ``--export-problem`` refined on the card;
 10. the port's bench (``bench_torch.main()`` in this process): the 64-frame
    headline at batch 8 with its ATE gate at 1.0 su, and the stage split
    (its other legs are phases 5, 8 and 9); its first line must carry every
    headline key and name the card;
-11. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
+11. the measurement tools: ``tools/profile_step_torch.py``'s trace of its
+   step (8 frames at 1000x1000; every detector stage and back-end bucket
+   must get kernel time), and ``tools/scaling_bench_torch.py --mode
+   kf-proc`` at 10240 keyframes on one NCCL rank and at 2048 keyframes on
+   1 and 2 gloo ranks;
+12. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
    per kernel, the card line, and a final JSON status line.
 """
 
@@ -90,9 +97,16 @@ import torch
 CONFIG3 = dict(estimator="ba", ba_schedule="chunk", init_joint_iters=3, ba_chunk_iters=4, pnp_iters=3,
                graph_capacity=16)
 CONFIG3_SEQ = 8
-# BASELINE config 5 (tools/scaling_bench.py --mode kf and --mode lm).
-CONFIG5_KF = dict(keyframes=10240, landmarks=256, iters=4, cg_iters=32)
-CONFIG5_LM = dict(landmarks=10240, keyframes=64, obs=16384, iters=4)
+# BASELINE config 5 through tools/scaling_bench_torch.py (its lm defaults
+# are config 5's landmark axis); 1 timed solve each, not the tool's 3.
+CONFIG5_KF = ["--mode", "kf", "--keyframes", "10240", "--landmarks", "256", "--devices", "8", "--reps", "1"]
+CONFIG5_LM = ["--mode", "lm", "--reps", "1"]
+# Phase 11: the kf-axis solve in worker processes, one NCCL rank on the card
+# and 1 and 2 gloo ranks on the host, one timed solve each.
+KF_PROC = {"gpu": ["--mode", "kf-proc", "--platform", "gpu", "--processes", "1", "--keyframes", "10240",
+                   "--landmarks", "256", "--reps", "1"],
+           "cpu": ["--mode", "kf-proc", "--platform", "cpu", "--processes", "1,2", "--keyframes", "2048",
+                   "--landmarks", "256", "--reps", "1"]}
 # The JAX refine demo's cost_refined at its defaults on the CPU, by shard count.
 REFINE_JAX_CPU_COST = {1: 9081.0, 8: 8934.6}
 APPS_FRAMES = 64  # the simulation CLI's default --frames
@@ -717,54 +731,14 @@ def config4_phase(dev, card: str, main_traj, runtime_build_s: float) -> tuple[di
     return out, launches, first_map
 
 
-def lm_world(n_lm: int, n_kf: int, n_obs: int, seed: int = 0):
-    """The landmark-axis world of ``tools/scaling_bench.py:64-131`` on the
-    port: a square grid of ``n_lm`` tags 25 units apart, ``n_kf`` keyframes
-    looking down from 140 units at random spots, each observing its
-    ``n_obs / n_kf`` nearest tags with 0.3 px corner noise, and keyframes
-    and tags perturbed by se3_exp of 0.01-sigma noise. Returns (BAState on
-    the CPU, Kmat, the largest observation count of one landmark)."""
-    from aprilslam_tpu_torch.geometry import PinholeCamera, se3_exp, tag_object_corners
-    from aprilslam_tpu_torch.slam import ba_init
+def load_tool(name: str):
+    """``tools/<name>.py`` as a module."""
+    import importlib.util
 
-    rng = np.random.default_rng(seed)
-    M, K, O = n_lm, n_kf, n_obs
-    Km = PinholeCamera.from_fov(1000, 1000, 45.0).matrix
-    obj = tag_object_corners(10.0).numpy()
-    side = int(np.ceil(np.sqrt(M)))
-    lm_pose = np.broadcast_to(np.eye(4, dtype=np.float32), (M, 4, 4)).copy()
-    lm_pose[:, 0, 3] = (np.arange(M) % side) * 25.0
-    lm_pose[:, 1, 3] = (np.arange(M) // side) * 25.0
-    kf_pose = np.broadcast_to(np.eye(4, dtype=np.float32), (K, 4, 4)).copy()
-    for k in range(K):
-        kf_pose[k][:3, :3] = np.diag([1, -1, -1]).astype(np.float32)
-        kf_pose[k][:3, 3] = [rng.uniform(0, side * 25), rng.uniform(0, side * 25), 140.0]
-    obs_kf, obs_lm = np.zeros(O, np.int32), np.zeros(O, np.int32)
-    obs_uv = np.zeros((O, 4, 2), np.float32)
-    i = 0
-    for k in range(K):
-        d = np.linalg.norm(lm_pose[:, :3, 3] - kf_pose[k][:3, 3], axis=-1)
-        for m in np.argsort(d)[:O // K]:
-            T_ct = np.linalg.inv(kf_pose[k]) @ lm_pose[m]
-            p = obj @ T_ct[:3, :3].T + T_ct[:3, 3]
-            uv = p[:, :2] / p[:, 2:3]
-            obs_uv[i] = np.stack([Km[0, 0] * uv[:, 0] + Km[0, 2], Km[1, 1] * uv[:, 1] + Km[1, 2]], -1) \
-                + rng.normal(scale=0.3, size=(4, 2))
-            obs_kf[i], obs_lm[i] = k, m
-            i += 1
-
-    def noisy(T):
-        xi = torch.as_tensor(np.stack([rng.normal(scale=0.01, size=6) for _ in range(len(T))]), dtype=torch.float32)
-        return (se3_exp(xi).numpy() @ T).astype(np.float32)
-
-    kf_noisy, lm_noisy = noisy(kf_pose), noisy(lm_pose)
-    t = torch.as_tensor
-    st = replace(ba_init(K, M, O, device="cpu"),
-                 kf_pose=t(kf_noisy), kf_active=torch.ones(K, dtype=torch.bool),
-                 lm_pose=t(lm_noisy), lm_active=torch.ones(M, dtype=torch.bool),
-                 obs_kf=t(obs_kf), obs_lm=t(obs_lm), obs_uv=t(obs_uv), obs_ok=t(np.arange(O) < i),
-                 anchor=torch.tensor(0, dtype=torch.int32), kf_ptr=torch.tensor(K, dtype=torch.int32))
-    return st, t(Km), int(np.bincount(obs_lm[:i], minlength=M).max())
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def sync_lines(fn) -> tuple:
@@ -799,9 +773,10 @@ def free_port() -> int:
 def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     """The parallel package (ROADMAP item 17): BASELINE config 3 through
     ``build_parallel_slam`` (``bench.py:465-522``), config 5 on the
-    keyframe axis and the landmark axis (``tools/scaling_bench.py`` kf and
-    lm modes) at 1 and 8 shards on the one card, the landmark solve on a
-    single-rank NCCL group, ``aprilslam-torch-refine --demo`` in process,
+    keyframe axis and the landmark axis through
+    ``tools/scaling_bench_torch.py`` (kf and lm modes; 8 shards on the one
+    card against 1 shard and against ``ba_optimize``), the landmark solve on
+    a single-rank NCCL group, ``aprilslam-torch-refine --demo`` in process,
     and a CLI run's ``--export-problem`` refined on the card. Returns the
     report and the CCL launches of config 3."""
     import torch.distributed as dist
@@ -812,9 +787,7 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     from aprilslam_tpu_torch.geometry import PinholeCamera
     from aprilslam_tpu_torch.ops import ccl
     from aprilslam_tpu_torch.parallel import (
-        build_distributed_ba, build_keyframe_ba, build_parallel_slam, initialize_distributed,
-        keyframe_ba_cost, make_mesh, partition_obs_by_keyframe, shard_observations_by_owner,
-        synthesize_trajectory_problem)
+        build_distributed_ba, build_parallel_slam, initialize_distributed, keyframe_ba_cost, make_mesh)
     from aprilslam_tpu_torch.parallel.multihost import make_global
     from aprilslam_tpu_torch.parallel.distributed_ba import LM_SHARDED
     from aprilslam_tpu_torch.sim import SceneConfig, trajectory
@@ -872,64 +845,60 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
         f"{c3['valid_rate']:.4f}, {launches['per_pass']} CCL launches per pass, ATE per sequence "
         f"{[round(a, 4) for a in ates]}; pgo chunk valid {c3['pgo_chunk']['valid_rate']:.4f} in {pgo_s:.2f} s [{card}]")
 
-    # (b) config 5, keyframe axis: scaling_bench --mode kf.
+    # (b) config 5, keyframe axis: tools/scaling_bench_torch.py --mode kf,
+    # then one more solve at each shard count for its host syncs and peak
+    # memory.
+    sb = load_tool("scaling_bench_torch")
+    kf_args = sb.parse_args(CONFIG5_KF)
     t0 = time.perf_counter()
-    prob8, kf_gt, Kk = synthesize_trajectory_problem(CONFIG5_KF["keyframes"], CONFIG5_KF["landmarks"], 8,
-                                                     obs_per_kf=4, seed=7, device=dev)
-    synth_s = time.perf_counter() - t0
-    p_kf, p_lm, p_uv, p_ok = partition_obs_by_keyframe(prob8.obs_kf.cpu().numpy(), prob8.obs_lm.cpu().numpy(),
-                                                       prob8.obs_uv.cpu().numpy(), prob8.obs_ok.cpu().numpy(),
-                                                       prob8.n_keyframes, 1)
-    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    probs = {1: replace(prob8, obs_kf=t(p_kf), obs_lm=t(p_lm), obs_uv=t(p_uv), obs_ok=t(p_ok)), 8: prob8}
+    prob, kf_gt, Kk = sb.kf_problem(kf_args)
+    kf = {"synth_s": time.perf_counter() - t0, "tool": sb.kf_axis_bench(kf_args, (prob, kf_gt, Kk))}
+    tool = kf["tool"]
     ate = lambda p: float(np.sqrt(np.mean(np.sum((p.kf_pose[:, :3, 3].cpu().numpy() - kf_gt[:, :3, 3]) ** 2, -1))))  # noqa: E731
-    kf = {"keyframes": prob8.n_keyframes, "landmarks": prob8.n_landmarks, "obs_per_kf": 4,
-          "iters": CONFIG5_KF["iters"], "cg_iters": CONFIG5_KF["cg_iters"], "synth_s": synth_s,
-          "cost_initial": float(keyframe_ba_cost(prob8, Kk, 10.0)), "ate_initial": ate(prob8)}
-    for n, prob in probs.items():
-        run = build_keyframe_ba(make_mesh(n, axis="kf", device=dev), prob.n_keyframes, prob.n_landmarks,
-                                int(prob.obs_kf.shape[0]), 10.0, iters=CONFIG5_KF["iters"],
-                                cg_iters=CONFIG5_KF["cg_iters"])
-        run(prob, Kk)  # warm-up: the card's libraries and allocator
+    for n, run in zip((1, kf_args.devices), sb.kf_solvers(kf_args, prob, Kk)):
         torch.cuda.reset_peak_memory_stats()
-        ((p, _c), syncs), solve_s = timed(lambda: sync_lines(lambda: run(prob, Kk)))
+        ((p, _c), syncs), solve_s = timed(lambda: sync_lines(run))
         kf[f"shards_{n}"] = {"solve_s": solve_s, "cost_refined": float(keyframe_ba_cost(p, Kk, 10.0)),
                              "ate_refined": ate(p), "host_syncs": sum(syncs.values()),
                              "sync_lines": syncs.most_common(4),
                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                              "finite": bool(torch.isfinite(p.kf_pose).all())}
         check(kf[f"shards_{n}"]["finite"], f"config 5 kf: non-finite poses at {n} shards")
-        check(kf[f"shards_{n}"]["ate_refined"] < kf["ate_initial"],
-              f"config 5 kf: ATE {kf[f'shards_{n}']['ate_refined']} not below {kf['ate_initial']} at {n} shards")
-    c1, c8 = kf["shards_1"]["cost_refined"], kf["shards_8"]["cost_refined"]
+        check(kf[f"shards_{n}"]["ate_refined"] < tool["ate_initial"],
+              f"config 5 kf: ATE {kf[f'shards_{n}']['ate_refined']} not below {tool['ate_initial']} at {n} shards")
+    c1, c8 = tool["cost_single"], tool["cost_distributed"]
     check(abs(c8 - c1) <= 0.05 * c1, f"config 5 kf: 8-shard cost {c8} not within 5 % of 1-shard {c1}")
+    check(tool["ate_distributed"] < tool["ate_initial"] and tool["device"] == torch.cuda.get_device_name(0),
+          f"config 5 kf: {tool}")
     out["config5_kf"] = kf
     log(f"config 5 kf axis: {json.dumps(kf)} [{card}]")
 
-    # (c) config 5, landmark axis: scaling_bench --mode lm.
+    # (c) config 5, landmark axis: tools/scaling_bench_torch.py --mode lm (its
+    # baseline ba_optimize with the sparse coupling against 8 shards), one
+    # more solve of each and of 1 shard for their host syncs and peak
+    # memory, and the 1-shard solve on a single-rank NCCL group.
+    lm_args = sb.parse_args(CONFIG5_LM)
     t0 = time.perf_counter()
-    st, Kl, P_max = lm_world(CONFIG5_LM["landmarks"], CONFIG5_LM["keyframes"], CONFIG5_LM["obs"])
-    lm = {"landmarks": CONFIG5_LM["landmarks"], "keyframes": CONFIG5_LM["keyframes"],
-          "observations": int(st.obs_ok.sum()), "max_obs_per_landmark": P_max, "iters": CONFIG5_LM["iters"],
-          "synth_s": time.perf_counter() - t0}
+    st, Kl, P_max = sb.lm_world(lm_args.landmarks, lm_args.keyframes, lm_args.obs)
+    lm = {"synth_s": time.perf_counter() - t0}
     st = replace(st, **{f.name: getattr(st, f.name).to(dev) for f in fields(st)})
     Kl = Kl.to(dev)
-    lm["cost_initial"] = float(ba_cost(st, Kl, 10.0))
-    sharded = {1: st, 8: shard_observations_by_owner(st, 8, fit=True)}
-    for n, s_n in sharded.items():
-        run = build_distributed_ba(make_mesh(n, axis="lm", device=dev), s_n.n_keyframes, s_n.n_landmarks,
-                                   s_n.n_obs_capacity, 10.0, iters=CONFIG5_LM["iters"], max_obs_per_lm=P_max)
-        run(s_n, Kl)  # warm-up
+    lm["tool"] = tool = sb.lm_bench(lm_args, (st, Kl, P_max))
+    one = build_distributed_ba(make_mesh(1, axis="lm", device=dev), st.n_keyframes, st.n_landmarks,
+                               st.n_obs_capacity, 10.0, iters=lm_args.iters, max_obs_per_lm=P_max)
+    one(st, Kl)  # warm-up
+    single, sharded = sb.lm_solvers(lm_args, st, Kl, P_max)
+    for name, run in (("single", single), ("shards_1", lambda: one(st, Kl)), (f"shards_{lm_args.devices}", sharded)):
         torch.cuda.reset_peak_memory_stats()
-        ((o, _c), syncs), solve_s = timed(lambda: sync_lines(lambda: run(s_n, Kl)))
-        lm[f"shards_{n}"] = {"solve_s": solve_s, "s_per_iter": solve_s / CONFIG5_LM["iters"],
-                             "cost_refined": float(ba_cost(o, Kl, 10.0)), "host_syncs": sum(syncs.values()),
-                             "sync_lines": syncs.most_common(4),
-                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        check(lm[f"shards_{n}"]["cost_refined"] < lm["cost_initial"],
-              f"config 5 lm: cost not reduced at {n} shards: {lm[f'shards_{n}']}")
-    c1, c8 = lm["shards_1"]["cost_refined"], lm["shards_8"]["cost_refined"]
-    check(abs(c8 - c1) <= 0.05 * c1, f"config 5 lm: 8-shard cost {c8} not within 5 % of 1-shard {c1}")
+        (o, syncs), solve_s = timed(lambda: sync_lines(run))
+        o = o[0] if isinstance(o, tuple) else o
+        lm[name] = {"solve_s": solve_s, "s_per_iter": solve_s / lm_args.iters,
+                    "cost_refined": float(ba_cost(o, Kl, 10.0)), "host_syncs": sum(syncs.values()),
+                    "sync_lines": syncs.most_common(4), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(lm[name]["cost_refined"] < tool["cost_initial"], f"config 5 lm: cost not reduced ({name}): {lm[name]}")
+    c1, c8 = tool["cost_single"], tool["cost_distributed"]
+    check(abs(c8 - c1) <= 0.05 * c1, f"config 5 lm: 8-shard cost {c8} not within 5 % of the single solve's {c1}")
+    c1 = lm["shards_1"]["cost_refined"]
     # The same one-shard solve on a single-rank NCCL process group.
     initialize_distributed(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0, platform="gpu")
     try:
@@ -937,7 +906,7 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
         mesh_pg = make_mesh(axis="lm", device=dev, group=dist.group.WORLD)
         s_pg = replace(st, **{f: make_global(mesh_pg, "lm", getattr(st, f)) for f in LM_SHARDED})
         run = build_distributed_ba(mesh_pg, st.n_keyframes, st.n_landmarks, st.n_obs_capacity, 10.0,
-                                   iters=CONFIG5_LM["iters"], max_obs_per_lm=P_max)
+                                   iters=lm_args.iters, max_obs_per_lm=P_max)
         (o_pg, _c), pg_s = timed(lambda: run(s_pg, Kl))
     finally:
         dist.destroy_process_group()
@@ -1022,6 +991,46 @@ def bench_phase(card: str, kind: str) -> dict:
     return {"first": first, "last": last, "ccl_launches": launches}
 
 
+def tools_phase(card: str) -> tuple[dict, int]:
+    """The measurement tools: ``tools/profile_step_torch.py``'s trace of its
+    step (8 frames at 1000x1000), and ``tools/scaling_bench_torch.py
+    --mode kf-proc`` on one NCCL rank on the card and on 1 and 2 gloo ranks
+    (``KF_PROC``). Returns the report and the CCL launches of the profile
+    run (its warm-up step and its traced steps)."""
+    from aprilslam_tpu_torch.ops import ccl
+
+    pst = load_tool("profile_step_torch")
+    ccl.ccl_launches = 0
+    t0 = time.perf_counter()
+    prof = pst.profile_step("cuda", BATCH, RES, "chunk")
+    launches = ccl.ccl_launches
+    pst.print_tables(prof)
+    stages = prof["stages_us_per_frame"]
+    out = {"profile": prof, "profile_s": time.perf_counter() - t0}
+    missing = [b for b in (*pst.STAGES, *pst.BACKEND.values()) if not stages.get(b, 0.0) > 0.0]
+    check(not missing, f"profile: no time in {missing}: {stages}")
+    check(abs(sum(stages.values()) - prof["total_us_per_frame"]) <= 1e-9 * prof["total_us_per_frame"],
+          f"profile: the buckets do not sum to the total: {stages}")
+    check(prof["card"] == card and prof["launches_per_call"] > 0,
+          f"profile: card {prof['card']}, {prof['launches_per_call']} launches per call")
+    check(launches == 1 + pst.CALLS, f"profile: {launches} CCL launches, expected {1 + pst.CALLS}")
+
+    sb = load_tool("scaling_bench_torch")
+    for platform, argv in KF_PROC.items():
+        t0 = time.perf_counter()
+        res = sb.kf_proc_bench(sb.parse_args(argv), wall_s=300.0)
+        res["wall_s"] = time.perf_counter() - t0
+        out[f"kf_proc_{platform}"] = res
+        counts = [int(n) for n in argv[argv.index("--processes") + 1].split(",")]
+        check(not res["failed"] and [r["processes"] for r in res["rows"]] == counts, f"kf-proc {platform}: {res}")
+        for r in res["rows"]:
+            check(r["backend"] == {"gpu": "nccl", "cpu": "gloo"}[platform] and np.isfinite(r["cost_final"])
+                  and r["ate_final"] < r["ate_initial"], f"kf-proc {platform}: {r}")
+        costs = [r["cost_final"] for r in res["rows"]]
+        check(max(costs) - min(costs) <= 0.05 * min(costs), f"kf-proc {platform}: costs {costs} not within 5 %")
+    return out, launches
+
+
 def host_syncs(process, chunk) -> Counter:
     """Host syncs of one step, ``process(chunk)``, counted by the line of the
     port that made them."""
@@ -1058,7 +1067,8 @@ def time_breakdown(chunks, cfg, cam, params, process, step_ms: float) -> dict:
         process(chunks[0])
         torch.cuda.synchronize()
     rows = prof.key_averages()
-    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+    # The card-side spans of the detector's stage ranges are no kernels.
+    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
                      key=lambda e: -e.self_device_time_total)
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     syncs = host_syncs(process, chunks[0])
@@ -1249,7 +1259,16 @@ def main() -> int:
     log(f"bench phase: {bench['phase_s']:.1f} s; headline {bench['first']['value']} fps, ATE "
         f"{bench['first']['ate_rmse_sim_units']} su, stages {bench['last']['stage_ms_per_frame']} [{card}]")
 
-    # ---- 11. report -------------------------------------------------------
+    # ---- 11. the measurement tools ----------------------------------------
+    t0 = time.perf_counter()
+    tools, launches_profile = tools_phase(card)
+    tools["phase_s"] = time.perf_counter() - t0
+    per_iter = {p: tools[f"kf_proc_{p}"]["summary"]["per_lm_iter_s"] for p in KF_PROC}
+    log(f"tools phase: {tools['phase_s']:.1f} s; profile {tools['profile']['total_us_per_frame']:.1f} us of kernel "
+        f"time per frame, busy {tools['profile']['busy_share']:.4f}; kf-proc s per LM iteration by processes "
+        f"{per_iter['gpu']} (NCCL), {per_iter['cpu']} (gloo) [{card}]")
+
+    # ---- 12. report -------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -1262,6 +1281,7 @@ def main() -> int:
         "launches_config4": config4_launches,
         "launches_config3": config3_launches,
         "launches_bench": bench["ccl_launches"],
+        "launches_profile": launches_profile,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -1282,6 +1302,9 @@ def main() -> int:
     log(json.dumps({"config4": config4}))
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"bench": bench, "card": card}))
+    log(json.dumps({"profile": tools["profile"]}))
+    log(json.dumps({"kf_proc": {"gpu": tools["kf_proc_gpu"], "cpu": tools["kf_proc_cpu"],
+                                "phase_s": tools["phase_s"], "card": card}}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

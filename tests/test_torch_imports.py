@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no jax, no JAX package, its own data files."""
 
 import ast
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -53,7 +54,11 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["bench_torch.py", "chip_smoke.py", "tools/ccl_ab.py"])
+TOOLS = ["tools/ccl_ab.py", "tools/scaling_bench_torch.py", "tools/scaling_proc_worker_torch.py",
+         "tools/profile_step_torch.py"]
+
+
+@pytest.mark.parametrize("rel", PORT_FILES + ["bench_torch.py", "chip_smoke.py"] + TOOLS)
 def test_no_jax_import(rel):
     roots = _imported_roots(ROOT / rel)
     assert not roots & {"jax", "jaxlib", "aprilslam_tpu"}, (rel, roots)
@@ -62,6 +67,38 @@ def test_no_jax_import(rel):
 @pytest.mark.parametrize("rel", DATA_FILES + NATIVE_SOURCES)
 def test_data_files_are_copies(rel):
     assert (PORT / rel).read_bytes() == (ROOT / "aprilslam_tpu" / rel).read_bytes()
+
+
+def test_kf_proc_gpu_refuses_more_processes_than_cards(monkeypatch):
+    """``--platform gpu`` checks the card count before it starts a worker."""
+    spec = importlib.util.spec_from_file_location("scaling_bench_torch", ROOT / "tools" / "scaling_bench_torch.py")
+    sb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sb)
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a worker was started")
+
+    monkeypatch.setattr(sb.subprocess, "Popen", no_spawn)
+    args = sb.parse_args(["--mode", "kf-proc", "--platform", "gpu",
+                          "--processes", f"1,{torch.cuda.device_count() + 1}"])
+    with pytest.raises(ValueError, match="one card per process"):
+        sb.kf_proc_bench(args)
+
+
+@pytest.mark.parametrize("argv", [
+    ["tools/scaling_bench_torch.py", "--mode", "lm"],
+    ["tools/scaling_bench_torch.py", "--mode", "kf"],
+    ["tools/scaling_bench_torch.py", "--mode", "kf-proc", "--processes", "1"],
+    ["tools/scaling_proc_worker_torch.py", "--num-processes", "1", "--process-id", "0", "--port", "1"],
+    ["tools/profile_step_torch.py"],
+], ids=["scaling-lm", "scaling-kf", "scaling-kf-proc", "proc-worker", "profile-step"])
+def test_tools_exit_nonzero_without_a_gpu(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid here")
+    res = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0, res.stdout
+    assert not any(line.startswith("{") for line in res.stdout.splitlines()), res.stdout
+    assert "CUDA" in res.stderr or "card" in res.stderr, res.stderr[-2000:]
 
 
 def test_entry_points_default_to_cuda():

@@ -63,11 +63,23 @@ Phases (any failed check exits non-zero):
    headline key and name the card;
 11. the measurement tools: ``tools/profile_step_torch.py``'s trace of its
    step (8 frames at 1000x1000; every detector stage and back-end bucket
-   must get kernel time), and ``tools/scaling_bench_torch.py --mode
-   kf-proc`` at 10240 keyframes on one NCCL rank and at 2048 keyframes on
-   1 and 2 gloo ranks;
-12. the CCL timing line (the config-4 map 8x240x320 included), one JSON line
-   per kernel, the card line, and a final JSON status line.
+   must get kernel time, and so must every bucket of the JAX tool's split
+   of the same time but its ``other``; the two splits' totals are equal),
+   and ``tools/scaling_bench_torch.py --mode kf-proc`` at 10240 keyframes
+   on one NCCL rank and at 2048 keyframes on 1 and 2 gloo ranks;
+12. robustness: ``tools/probe_robustness_torch.py``'s sweep on the card (the
+   default scene from 3 poses at 512x512 under noise, blur, gradients,
+   gamma with vignette and the combined stack, then 3 tilted scenes,
+   rendered and degraded on the card, detected at ``quad_decimate=1``)
+   against ``tests/test_detect_robustness.py``'s floors; the same frames
+   through the CPU detector (the same ids, corners within 0.001 px); each
+   scenario's full-resolution trinary map through the kernel, the plain
+   version and the scipy oracle, bit for bit, and the sigma-0.10 map
+   timed; then ``tools/probe_ate_dist_torch.py``'s and
+   ``tools/probe_tail_split_torch.py``'s analyses of phase 4's outputs;
+13. the CCL timing line (the config-4 map 8x240x320 and a degraded
+   3x512x512 map included), one JSON line per kernel, the card line, and a
+   final JSON status line.
 """
 
 from __future__ import annotations
@@ -110,6 +122,10 @@ KF_PROC = {"gpu": ["--mode", "kf-proc", "--platform", "gpu", "--processes", "1",
 # The JAX refine demo's cost_refined at its defaults on the CPU, by shard count.
 REFINE_JAX_CPU_COST = {1: 9081.0, 8: 8934.6}
 APPS_FRAMES = 64  # the simulation CLI's default --frames
+# Phase 12: the largest corner gap between the card's and the host's
+# detections of the same frames. Both run the same detector code on the
+# same input; measured at most 0.000092 px apart on the H100.
+ROBUST_CORNER_TOL_PX = 1e-3
 BATCH = 8
 RES = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1011,6 +1027,14 @@ def tools_phase(card: str) -> tuple[dict, int]:
     check(not missing, f"profile: no time in {missing}: {stages}")
     check(abs(sum(stages.values()) - prof["total_us_per_frame"]) <= 1e-9 * prof["total_us_per_frame"],
           f"profile: the buckets do not sum to the total: {stages}")
+    jb = prof["jax_buckets"]
+    log("profile, the JAX tool's buckets beside the port's (us per frame): "
+        + ", ".join(f"{b} {jb[b]:.1f}" for b in pst.JAX_BUCKETS) + " | "
+        + ", ".join(f"{b} {us:.1f}" for b, us in sorted(stages.items(), key=lambda kv: -kv[1])) + f" [{card}]")
+    missing = [b for b in pst.JAX_BUCKETS if b != "other" and not jb.get(b, 0.0) > 0.0]
+    check(not missing, f"profile: no time in the JAX buckets {missing}: {jb}")
+    check(abs(sum(jb.values()) - prof["total_us_per_frame"]) <= 1e-9 * prof["total_us_per_frame"],
+          f"profile: the JAX buckets do not sum to the total: {jb}")
     check(prof["card"] == card and prof["launches_per_call"] > 0,
           f"profile: card {prof['card']}, {prof['launches_per_call']} launches per call")
     check(launches == 1 + pst.CALLS, f"profile: {launches} CCL launches, expected {1 + pst.CALLS}")
@@ -1029,6 +1053,69 @@ def tools_phase(card: str) -> tuple[dict, int]:
         costs = [r["cost_final"] for r in res["rows"]]
         check(max(costs) - min(costs) <= 0.05 * min(costs), f"kf-proc {platform}: costs {costs} not within 5 %")
     return out, launches
+
+
+def robustness_phase(card: str, cfg, cam, traj, main_outs, main_ba, main_ate: float) -> tuple[dict, int, torch.Tensor]:
+    """``tools/probe_robustness_torch.py``'s sweep on the card against the
+    robustness test's floors, the same frames through the CPU detector, each
+    scenario's full-resolution trinary map through the kernel, its plain
+    version and the scipy oracle, and the ATE-distribution and tail-split
+    analyses of the main path's outputs (``main_outs``, its BA state after
+    that pass, ``main_ate`` its ATE). Returns the report, the CCL launches of
+    the sweep and the sigma-0.10 map (the timed one)."""
+    from aprilslam_tpu_torch.detect import DetectorParams, TagDetector
+    from aprilslam_tpu_torch.detect.threshold import adaptive_threshold_with_levels, decimate, to_grayscale
+    from aprilslam_tpu_torch.ops import ccl
+
+    prt = load_tool("probe_robustness_torch")
+    ccl.ccl_launches = 0
+    swept = list(prt.sweep("cuda"))
+    torch.cuda.synchronize()
+    launches = ccl.ccl_launches
+    check(launches == len(swept) == 14, f"robustness: {launches} CCL launches for {len(swept)} scenarios, expected 14")
+    rows, names, host, noisy = [row for _sc, _det, row in swept], [], {}, None
+    params = DetectorParams(**prt.DETECTOR)
+    for sc, det, row in swept:
+        log(f"robustness {row['name']}: found {row['found']}/{row['expected']}, rms {row['rms']:.4f} px, "
+            f"false ids {row['false_ids']}, floor {row['floor_ok']} [{card}]")
+        check(row["floor_ok"] is not False, f"robustness {row['name']}: below the floor: {row}")
+        # The same frames through the CPU detector.
+        cpu = TagDetector(sc.family, params, device="cpu").detect(sc.frames.cpu())
+        check(prt.id_sets(cpu) == prt.id_sets(det), f"robustness {row['name']}: card ids {prt.id_sets(det)} "
+              f"!= host ids {prt.id_sets(cpu)}")
+        on_card, on_host = prt.corners_by_id(det), prt.corners_by_id(cpu)
+        gap = max((float(np.abs(c[i] - h[i]).max()) for c, h in zip(on_card, on_host) for i in c), default=0.0)
+        host[row["name"]] = gap
+        check(gap <= ROBUST_CORNER_TOL_PX, f"robustness {row['name']}: card and host corners {gap} px apart")
+        # The scenario's full-resolution trinary map through the kernel.
+        dec = decimate(to_grayscale(sc.frames), params.quad_decimate)
+        trin = adaptive_threshold_with_levels(dec, tile=params.tile, min_contrast=params.min_contrast)[0].contiguous()
+        name = f"degraded_{row['name']}_{'x'.join(map(str, trin.shape))}"
+        got = ccl.connected_components(trin)
+        plain = ccl.connected_components_plain(trin)
+        check(torch.equal(got, plain), f"kernel != plain on {name}")
+        oracle = scipy_labels(trin.cpu().numpy())
+        check(np.array_equal(got.cpu().numpy(), oracle), f"kernel != scipy oracle on {name}")
+        log(f"ccl {name}: kernel == plain == oracle ({len(np.unique(oracle))} labels)")
+        names.append(name)
+        if row["name"] == "noise0.10":
+            noisy = trin
+    out = {"rows": rows, "card_vs_host_corner_gap_px": host, "maps": names, "ccl_launches": launches, "card": card}
+
+    pad, pts = load_tool("probe_ate_dist_torch"), load_tool("probe_tail_split_torch")
+    o = pad.outputs_numpy(main_outs)
+    dist = pad.ate_distribution(cfg, traj, o)
+    check(abs(dist["rmse"] - main_ate) <= 1e-6 * main_ate,
+          f"ate_dist: RMSE {dist['rmse']} != the main path's {main_ate}")
+    tail = pts.tail_split(cfg, cam, traj, o, main_ba)
+    check(all(np.isfinite(tail[k]) for k in ("est_map_rmse", "gt_map_rmse")), f"tail_split: {tail}")
+    out["ate_dist"], out["tail_split"] = dist, tail
+    log(json.dumps({"ate_analysis": {
+        "frames": len(traj), "rmse": dist["rmse"], "median": dist["median"], "p90": dist["p90"], "max": dist["max"],
+        "by_n_visible": dist["by_n_visible"], "rmse_excluding_top": dist["rmse_excluding_top"],
+        "est_map_gn_rmse": tail["est_map_rmse"], "gt_map_gn_rmse": tail["gt_map_rmse"],
+        "tail_by_n_visible": tail["by_n_visible"], "card": card}}))
+    return out, launches, noisy
 
 
 def host_syncs(process, chunk) -> Counter:
@@ -1200,6 +1287,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = ccl.ccl_launches
+    main_ba = slam.ba_state  # the map the accuracy pass ended with (phase 12)
     check(launches == len(chunks), f"ccl launches {launches} != chunks {len(chunks)}")
     check_outputs(outs, args.frames, "main path")
     ate, vrate, n_invalid, conf = ate_eval(cfg, traj.positions, traj.rotations, outs)
@@ -1268,7 +1356,20 @@ def main() -> int:
         f"time per frame, busy {tools['profile']['busy_share']:.4f}; kf-proc s per LM iteration by processes "
         f"{per_iter['gpu']} (NCCL), {per_iter['cpu']} (gloo) [{card}]")
 
-    # ---- 12. report -------------------------------------------------------
+    # ---- 12. robustness and the ATE analyses --------------------------------
+    t0 = time.perf_counter()
+    robustness, launches_robustness, noisy_map = robustness_phase(card, cfg, cam, traj, outs, main_ba, ate)
+    robustness["phase_s"] = time.perf_counter() - t0
+    log(f"robustness phase: {robustness['phase_s']:.1f} s")
+    name12 = "degraded_noise0.10_3x512x512"
+    ccl_timing["ms"][name12] = time_cuda(lambda: ccl.connected_components(noisy_map), 200)
+    ccl_timing["device_ms"][name12] = time_cuda_graph(lambda: ccl.connected_components(noisy_map))
+    ccl_timing["bound_ms"][name12] = noisy_map.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    log(f"ccl timing {name12}: kernel {ccl_timing['ms'][name12]:.4f} ms "
+        f"({ccl_timing['device_ms'][name12]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name12]:.5f} ms "
+        f"(bytes) [{card}]")
+
+    # ---- 13. report -------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -1282,6 +1383,7 @@ def main() -> int:
         "launches_config3": config3_launches,
         "launches_bench": bench["ccl_launches"],
         "launches_profile": launches_profile,
+        "launches_robustness": launches_robustness,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -1305,6 +1407,7 @@ def main() -> int:
     log(json.dumps({"profile": tools["profile"]}))
     log(json.dumps({"kf_proc": {"gpu": tools["kf_proc_gpu"], "cpu": tools["kf_proc_cpu"],
                                 "phase_s": tools["phase_s"], "card": card}}))
+    log(json.dumps({"robustness": robustness}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -55,7 +55,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 TOOLS = ["tools/ccl_ab.py", "tools/scaling_bench_torch.py", "tools/scaling_proc_worker_torch.py",
-         "tools/profile_step_torch.py"]
+         "tools/profile_step_torch.py", "tools/probe_robustness_torch.py", "tools/probe_detect_stages_torch.py",
+         "tools/probe_ascii_torch.py", "tools/probe_ate_dist_torch.py", "tools/probe_tail_split_torch.py",
+         "tools/probe_negev_torch.py"]
 
 
 @pytest.mark.parametrize("rel", PORT_FILES + ["bench_torch.py", "chip_smoke.py"] + TOOLS)
@@ -91,7 +93,14 @@ def test_kf_proc_gpu_refuses_more_processes_than_cards(monkeypatch):
     ["tools/scaling_bench_torch.py", "--mode", "kf-proc", "--processes", "1"],
     ["tools/scaling_proc_worker_torch.py", "--num-processes", "1", "--process-id", "0", "--port", "1"],
     ["tools/profile_step_torch.py"],
-], ids=["scaling-lm", "scaling-kf", "scaling-kf-proc", "proc-worker", "profile-step"])
+    ["tools/probe_robustness_torch.py"],
+    ["tools/probe_detect_stages_torch.py"],
+    ["tools/probe_ascii_torch.py"],
+    ["tools/probe_ate_dist_torch.py"],
+    ["tools/probe_tail_split_torch.py"],
+    ["tools/probe_negev_torch.py"],
+], ids=["scaling-lm", "scaling-kf", "scaling-kf-proc", "proc-worker", "profile-step", "probe-robustness",
+        "probe-detect-stages", "probe-ascii", "probe-ate-dist", "probe-tail-split", "probe-negev"])
 def test_tools_exit_nonzero_without_a_gpu(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is valid here")

@@ -174,6 +174,9 @@ def test_profile_tool_buckets_sum_to_total(monkeypatch, capsys):
     for b in (*tool.STAGES, *tool.BACKEND.values()):
         assert stages.get(b, 0.0) > 0.0, (b, stages)
     assert sum(stages.values()) == pytest.approx(prof["total_us_per_frame"], rel=1e-9)
+    assert set(prof["jax_buckets"]) == set(tool.JAX_BUCKETS)
+    assert sum(prof["jax_buckets"].values()) == pytest.approx(prof["total_us_per_frame"], rel=1e-9)
+    assert "== the same time in the JAX tool's buckets (us/frame) ==" in out
     assert sum(prof["stage_share"].values()) == pytest.approx(1.0, rel=1e-9)
     assert prof["launches_per_call"] is None and prof["card"] is None and prof["batch"] == 2
     assert len(prof["top_ops"]) == 2
@@ -245,7 +248,10 @@ def test_profile_attribution_of_device_events():
     a launch outside any op inside a stage range (the CCL kernel's),
     launches in nested back-end ranges, one outside every range, a device
     event without a runtime call, and the card-side copy of a range, which
-    counts as no kernel."""
+    counts as no kernel; in the JAX tool's buckets, launches inside and
+    outside the per-frame loop's range. Then the hook on the CPU:
+    ``ba_add_frame``'s ops count in ``scan(per-frame)``, and the JAX buckets
+    sum to the port's total."""
     tool = _load("profile_step_torch")
     ev = [
         _Event("stage_ccl", 100, 200, annotation=True),
@@ -264,9 +270,40 @@ def test_profile_attribution_of_device_events():
         _Event("cudaMemcpyAsync", 801, 805, corr=903, linked=7),
         _Event("Memcpy DtoH", 900, 905, corr=903, linked=7, cuda=True),
         _Event("Memset", 910, 912, corr=904, cuda=True),
+        _Event("jax:scan(per-frame)", 1000, 1100, annotation=True),
+        _Event("backend:localize", 1010, 1020, annotation=True),
+        _Event("cudaLaunchKernel", 1012, 1013, corr=905),
+        _Event("gn_kernel", 1200, 1240, corr=905, cuda=True),
+        _Event("cudaLaunchKernel", 1050, 1051, corr=906),
+        _Event("where_kernel", 1250, 1253, corr=906, cuda=True),
+        _Event("backend:localize", 1150, 1160, annotation=True),
+        _Event("cudaLaunchKernel", 1152, 1153, corr=907),
+        _Event("gn_kernel", 1300, 1350, corr=907, cuda=True),
     ]
-    totals, examples, n = tool.attribute(ev, on_cuda=True)
-    assert n == 5
-    assert totals == pytest.approx({"ccl": 0.010, "scan(per-frame)": 0.020, "ba(chunk)": 0.030, "other": 0.007})
+    totals, examples, n, jax_totals = tool.attribute(ev, on_cuda=True)
+    assert n == 8
+    assert totals == pytest.approx({"ccl": 0.010, "scan(per-frame)": 0.020, "ba(chunk)": 0.030, "other": 0.010,
+                                    "localize": 0.090})
     assert examples["ccl"] == pytest.approx({"ccl_local": 0.010})
-    assert examples["other"] == pytest.approx({"Memcpy DtoH": 0.005, "Memset": 0.002})
+    assert examples["other"] == pytest.approx({"Memcpy DtoH": 0.005, "Memset": 0.002, "where_kernel": 0.003})
+    assert jax_totals == pytest.approx({"ccl": 0.010, "scan(per-frame)": 0.063, "ba(chunk)": 0.030,
+                                        "other": 0.057})
+    assert sum(jax_totals.values()) == pytest.approx(sum(totals.values()), rel=1e-12)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from aprilslam_tpu_torch.slam import ba_add_frame, ba_init
+
+    state = ba_init(4, 8, 32, device="cpu")
+    ids = torch.tensor([0, 3, -1], dtype=torch.int32)
+    ok = torch.tensor([True, True, False])
+    T = torch.eye(4).expand(3, 4, 4).clone()
+    T[:, 2, 3] = 10.0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tool.BackendRanges():
+            added = ba_add_frame(state, ids, torch.rand(3, 4, 2) * 64, ok, torch.eye(4), T, seed_ok=ok)
+    assert bool(added.lm_active[3])
+    totals, examples, _n, jax_totals = tool.attribute(prof.profiler.kineto_results.events(), on_cuda=False)
+    assert totals.get("scan(per-frame)", 0.0) > 0.0 and "ba(chunk)" not in totals, totals
+    assert jax_totals["scan(per-frame)"] == pytest.approx(totals["scan(per-frame)"], rel=1e-12)
+    assert sum(jax_totals.values()) == pytest.approx(sum(totals.values()), rel=1e-12)

@@ -12,18 +12,31 @@ by pipeline stage:
 * the rest by the innermost Python frame, around the launching op, of a
   function in one of the back end's files: ``slam/ba.py`` -> ``ba(chunk)``,
   ``pose/pnp.py`` -> ``pnp``, ``slam/graph.py`` -> ``scan(per-frame)``,
-  ``slam/localize.py`` -> ``localize``; anything else -> ``other``. (The
-  JAX tool keys on the jit names of those functions; ``ba_add_frame``,
-  which the JAX tool counts in the per-frame scan, lives in ``slam/ba.py``.)
-  While tracing, a ``sys.setprofile`` hook opens a ``backend:<bucket>``
-  profiler range for each call of such a function: torch.profiler's own
-  ``with_stack`` recorded no Python frame with torch 2.11 (CUDA 12.8) on
-  an H100 host.
+  ``slam/localize.py`` -> ``localize``; anything else -> ``other``. Some
+  functions of those files take a bucket by name instead (``NAME_BUCKET``):
+  ``ba_add_frame``, which the step calls in its per-frame loop, goes to
+  ``scan(per-frame)`` with everything it calls, as in the JAX tool; the
+  index helpers ``_take`` and ``_scatter_drop`` open no range, so their ops
+  go to their caller's. While tracing, a ``sys.setprofile`` hook opens a
+  ``backend:<bucket>`` profiler range for each call of such a function:
+  torch.profiler's own ``with_stack`` recorded no Python frame with torch
+  2.11 (CUDA 12.8) on an H100 host.
+
+The same device time is also split into the JAX tool's buckets
+(``jax_buckets``): its ``classify`` (``tools/profile_step.py``) has no
+``localize`` and puts every op of the step's ``lax.scan``
+(``jit(slam_step)/while/``) that is neither PnP nor ``ba_optimize`` into
+``scan(per-frame)``, and the rest of the step's own ops, the batched
+localizations before and after the scan and the observability pass
+included, into ``other``. The hook marks the port's counterpart of the
+scan's body, ``per_frame`` of ``slam/pipeline.py``, with a
+``jax:scan(per-frame)`` range. Both splits sum to the same total.
 
 Prints the JAX tool's two tables (microseconds per frame per stage with
-each stage's share, then the top 8 ops of the 2 largest stages) and one
-``{"profile": {...}}`` line: the stages, the total per frame, the launches
-per call, the busy share of the traced window and the card.
+each stage's share, then the top 8 ops of the 2 largest stages), the JAX
+buckets beside the port's, and one ``{"profile": {...}}`` line: the stages,
+the JAX buckets, the total per frame, the launches per call, the busy share
+of the traced window and the card.
 
     python3 tools/profile_step_torch.py               # on the card; exits 1 without one
     B=2 RES=256 python3 tools/profile_step_torch.py --device cpu
@@ -52,27 +65,46 @@ CALLS = 3
 STAGES = ("threshold", "ccl", "quads", "decode", "refine")
 BACKEND = {"slam.ba": "ba(chunk)", "pose.pnp": "pnp", "slam.graph": "scan(per-frame)",
            "slam.localize": "localize"}
+# Functions of BACKEND's files whose bucket is not their file's: a call of one
+# of these, and every back-end call beneath it, goes to the bucket named;
+# None opens no range, so the function's ops go to its caller's.
+NAME_BUCKET = {"ba_add_frame": "scan(per-frame)", "_take": None, "_scatter_drop": None}
+# The port's counterpart of the body of the JAX step's lax.scan.
+JAX_SCAN = ("slam.pipeline", "per_frame")
+JAX_BUCKETS = (*STAGES, "pnp", "ba(chunk)", "scan(per-frame)", "other")
 
 
 class BackendRanges:
     """While entered, each call of a function defined in one of BACKEND's
-    modules runs inside a profiler range ``backend:<bucket>`` (a
-    ``sys.setprofile`` hook on this thread)."""
+    modules runs inside a profiler range ``backend:<bucket>`` (its file's
+    bucket, or NAME_BUCKET's), and each call of JAX_SCAN inside a range
+    ``jax:scan(per-frame)`` (a ``sys.setprofile`` hook on this thread)."""
 
     def __init__(self):
         import importlib
 
-        self.files = {importlib.import_module(f"aprilslam_tpu_torch.{m}").__file__: f"backend:{b}"
-                      for m, b in BACKEND.items()}
-        self.open = []  # (frame, range) of the calls that opened a range
+        def path(m):
+            return importlib.import_module(f"aprilslam_tpu_torch.{m}").__file__
+
+        self.files = {path(m): f"backend:{b}" for m, b in BACKEND.items()}
+        self.scan = (path(JAX_SCAN[0]), JAX_SCAN[1])
+        self.open = []  # (frame, range, sealed) of the calls that opened a range
 
     def _hook(self, frame, event, _arg):
         if event == "call":
-            name = self.files.get(frame.f_code.co_filename)
+            if self.open and self.open[-1][2]:
+                return  # beneath a NAME_BUCKET call: its bucket holds
+            code = frame.f_code
+            name, sealed = self.files.get(code.co_filename), False
+            if name is not None and code.co_name in NAME_BUCKET:
+                bucket = NAME_BUCKET[code.co_name]
+                name, sealed = (None, False) if bucket is None else (f"backend:{bucket}", True)
+            elif name is None and (code.co_filename, code.co_name) == self.scan:
+                name = "jax:scan(per-frame)"
             if name is not None:
                 rf = record_function(name)
                 rf.__enter__()
-                self.open.append((frame, rf))
+                self.open.append((frame, rf, sealed))
         elif event == "return" and self.open and self.open[-1][0] is frame:
             self.open.pop()[1].__exit__(None, None, None)
 
@@ -84,6 +116,18 @@ class BackendRanges:
         sys.setprofile(None)
         while self.open:
             self.open.pop()[1].__exit__(None, None, None)
+
+
+def jax_bucket(stage: str | None, bucket: str | None, in_scan: bool) -> str:
+    """The JAX tool's bucket for work the port puts in detector ``stage`` or
+    back-end ``bucket`` (None: neither), ``in_scan`` when it ran inside the
+    step's per-frame loop: its ``classify`` checks the stages, then
+    ``ba_optimize`` and PnP, then the scan; all else is ``other``."""
+    if stage:
+        return stage
+    if bucket in ("pnp", "ba(chunk)"):
+        return bucket
+    return "scan(per-frame)" if in_scan or bucket == "scan(per-frame)" else "other"
 
 
 def _innermost(ranges: list, times: list) -> list:
@@ -105,18 +149,20 @@ def _innermost(ranges: list, times: list) -> list:
 
 
 def attribute(events, on_cuda: bool):
-    """(µs per bucket, µs per bucket and op name, events counted) from the
-    profiler's raw events (``prof.profiler.kineto_results.events()``).
+    """(µs per bucket, µs per bucket and op name, events counted, µs per JAX
+    bucket) from the profiler's raw events
+    (``prof.profiler.kineto_results.events()``).
 
     On CUDA each device event (kernel, copy, set) counts its duration and
     goes where its launch was made: the CUDA runtime call with its
     correlation id (which also places a launch outside any op, such as the
     CCL kernel's), in the ``stage_*`` range open then, else in the innermost
     ``backend:`` range. On the CPU each op counts its own time (its span
-    less its child ops'), placed by the ranges open at its start."""
+    less its child ops'), placed by the ranges open at its start. The JAX
+    buckets split the same time by ``jax_bucket``."""
     from torch.autograd import DeviceType
 
-    stages, backend, device, launches, ops = [], [], [], {}, []
+    stages, backend, scan, device, launches, ops = [], [], [], [], {}, []
     for e in events:
         if e.device_type() != DeviceType.CPU:
             if not e.is_user_annotation():
@@ -128,19 +174,28 @@ def attribute(events, on_cuda: bool):
                 stages.append((e.start_ns(), e.end_ns(), name.removeprefix("stage_")))
             elif name.startswith("backend:"):
                 backend.append((e.start_ns(), e.end_ns(), name.removeprefix("backend:")))
+            elif name.startswith("jax:"):
+                scan.append((e.start_ns(), e.end_ns(), True))
         elif name.startswith("cu"):
             launches[e.correlation_id()] = e.start_ns()  # a CUDA runtime call
         elif not on_cuda:
             ops.append((e.start_ns(), e.end_ns(), e.start_thread_id(), name))
 
     totals, examples = defaultdict(float), defaultdict(lambda: defaultdict(float))
+    jax_totals = defaultdict(float)
+
+    def add(us, name, stage, bucket, in_scan):
+        b = stage or bucket or "other"
+        totals[b] += us
+        examples[b][name] += us
+        jax_totals[jax_bucket(stage, bucket, bool(in_scan))] += us
+
     if on_cuda:
         t = [launches.get(corr, -1) for _s, _e, corr, _n in device]
-        for (start, end, _c, name), stage, bucket in zip(device, _innermost(stages, t), _innermost(backend, t)):
-            b = stage or bucket or "other"
-            totals[b] += (end - start) / 1e3
-            examples[b][name[:90]] += (end - start) / 1e3
-        return dict(totals), {b: dict(v) for b, v in examples.items()}, len(device)
+        for (start, end, _c, name), *where in zip(device, _innermost(stages, t), _innermost(backend, t),
+                                                  _innermost(scan, t)):
+            add((end - start) / 1e3, name[:90], *where)
+        return dict(totals), {b: dict(v) for b, v in examples.items()}, len(device), dict(jax_totals)
 
     ops.sort(key=lambda o: (o[0], -o[1]))
     own = [end - start for start, end, _t, _n in ops]
@@ -153,11 +208,10 @@ def attribute(events, on_cuda: bool):
             own[st[-1]] -= end - start
         st.append(i)
     times = [o[0] for o in ops]
-    for (_s, _e, _t, name), us, stage, bucket in zip(ops, own, _innermost(stages, times), _innermost(backend, times)):
-        b = stage or bucket or "other"
-        totals[b] += us / 1e3
-        examples[b][name] += us / 1e3
-    return dict(totals), {b: dict(v) for b, v in examples.items()}, len(ops)
+    for (_s, _e, _t, name), ns, *where in zip(ops, own, _innermost(stages, times), _innermost(backend, times),
+                                             _innermost(scan, times)):
+        add(ns / 1e3, name, *where)
+    return dict(totals), {b: dict(v) for b, v in examples.items()}, len(ops), dict(jax_totals)
 
 
 def profile_step(device: str = "cuda", batch: int = 8, res: int = 1000, sched: str = "chunk",
@@ -206,10 +260,12 @@ def profile_step(device: str = "cuda", batch: int = 8, res: int = 1000, sched: s
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, "profile_step_torch.json"))
     t0 = time.perf_counter()
-    totals, examples, n_events = attribute(prof.profiler.kineto_results.events(), on_cuda)
+    totals, examples, n_events, jax_totals = attribute(prof.profiler.kineto_results.events(), on_cuda)
     print(f"attributed {n_events} events in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     for s in STAGES:
         totals.setdefault(s, 0.0)
+    for b in JAX_BUCKETS:
+        jax_totals.setdefault(b, 0.0)
     total = sum(totals.values())
     per_frame = CALLS * batch
     return {
@@ -219,6 +275,7 @@ def profile_step(device: str = "cuda", batch: int = 8, res: int = 1000, sched: s
         "batch": batch, "resolution": res, "schedule": sched, "calls": CALLS,
         "stages_us_per_frame": {b: us / per_frame for b, us in totals.items()},
         "stage_share": {b: us / total if total else 0.0 for b, us in totals.items()},
+        "jax_buckets": {b: us / per_frame for b, us in jax_totals.items()},
         "total_us_per_frame": total / per_frame,
         "launches_per_call": n_events / CALLS if on_cuda else None,
         "window_s": window_s,
@@ -236,6 +293,9 @@ def print_tables(prof: dict) -> None:
     for stage, us in stages:
         print(f"{stage:16s} {us:9.1f} us/frame  ({prof['stage_share'][stage] * 100:5.1f}%)")
     print(f"{'TOTAL':16s} {prof['total_us_per_frame']:9.1f} us/frame")
+    print("\n== the same time in the JAX tool's buckets (us/frame) ==")
+    for b in JAX_BUCKETS:
+        print(f"{b:16s} {prof['jax_buckets'][b]:9.1f}")
     print("\n== top ops in the 2 biggest stages ==")
     for stage, _ in stages[:2]:
         print(f"[{stage}]")

@@ -77,9 +77,20 @@ Phases (any failed check exits non-zero):
    version and the scipy oracle, bit for bit, and the sigma-0.10 map
    timed; then ``tools/probe_ate_dist_torch.py``'s and
    ``tools/probe_tail_split_torch.py``'s analyses of phase 4's outputs;
-13. the CCL timing line (the config-4 map 8x240x320 and a degraded
-   3x512x512 map included), one JSON line per kernel, the card line, and a
-   final JSON status line.
+13. probes (ROADMAP items 21a, 21b): on phase 5's config-2 frames,
+   ``tools/probe_pgo_cost_torch.py``'s five ablation variants and its
+   ``on_cap16_it6``/``on_cap16_it4`` rows, ``tools/probe_pgo_iters_torch.py``'s
+   ``off``, (10, 6) and (4, 3) rows (one timed pass each): every pgo-on row
+   under 1.0 su with a loop edge, the rows that are phase 5's pgo-on step
+   (graph capacity 16, depths 4/3) at its ATE to 1e-4 su and its loop edges,
+   the two ATE rows equal; then ``tools/probe_quads_torch.py`` at B=8 and
+   ``tools/probe_quads_batch_torch.py`` at B=8 and 32 (1000x1000): the full
+   prefix equal to ``quad_candidates``, frames 0-7 of B=32 giving B=8's
+   quads, the kernel's 8x500x500 and 32x500x500 labels equal to the plain
+   version's;
+14. the CCL timing line (the config-4 map 8x240x320, a degraded 3x512x512
+   map and the probes' 32x500x500 map included), one JSON line per kernel,
+   the card line, and a final JSON status line.
 """
 
 from __future__ import annotations
@@ -270,10 +281,11 @@ def check_outputs(outs, n: int, what: str) -> None:
     check(bool(torch.isfinite(poses[valid]).all()), f"{what}: non-finite pose on a valid frame")
 
 
-def config2_phase(params, dev, card: str) -> tuple[dict, dict]:
+def config2_phase(params, dev, card: str) -> tuple[dict, dict, tuple]:
     """BASELINE config 2, pgo off then on, through ``bench_torch``'s config-2
-    leg (``bench.py:381-462`` on the port). Returns the report and the CCL
-    launches of each side's accuracy pass."""
+    leg (``bench.py:381-462`` on the port). Returns the report, the CCL
+    launches of each side's accuracy pass and the leg's (scene config,
+    camera, trajectory, chunks)."""
     from bench_torch import pgo_frames, pgo_run
 
     from aprilslam_tpu_torch.eval import ate_eval
@@ -309,7 +321,7 @@ def config2_phase(params, dev, card: str) -> tuple[dict, dict]:
     check(out["pgo_on"]["ate"] < 1.0, f"config 2 pgo on: ATE {out['pgo_on']['ate']} >= 1.0 su")
     check(out["pgo_on"]["loop_edges"] >= 1, "config 2 pgo on: no loop edge was minted")
     out["fps_on_over_off"] = out["pgo_on"]["fps"] / out["pgo_off"]["fps"]
-    return out, launches
+    return out, launches, (cfg, cam, traj, chunks)
 
 
 def options_phase(chunk, cfg, cam, params, dev, headline_ba, headline: dict) -> dict:
@@ -1118,6 +1130,100 @@ def robustness_phase(card: str, cfg, cam, traj, main_outs, main_ba, main_ate: fl
     return out, launches, noisy
 
 
+def probes_phase(card: str, params, dev, config2: dict, c2: tuple) -> tuple[dict, int, torch.Tensor]:
+    """ROADMAP items 21a and 21b on the card. On phase 5's config-2 frames
+    (``c2``): ``tools/probe_pgo_cost_torch.py``'s five ablation variants and
+    its ``on_cap16_it6`` and ``on_cap16_it4`` rows,
+    ``tools/probe_pgo_iters_torch.py``'s ``off``, (10, 6) and (4, 3) rows,
+    one pass each from a fresh state, timed (the tools' repeated passes are
+    cut for time: phase 5 warmed these shapes up); then
+    ``tools/probe_quads_torch.py`` at B=8 and ``tools/probe_quads_batch_torch.py``
+    at B=8 and 32 (1000x1000). Returns the report, the CCL launches of the
+    phase and the 32x500x500 trinary map."""
+    from aprilslam_tpu_torch.detect import quad_candidates
+    from aprilslam_tpu_torch.ops import ccl
+
+    pc, pi = load_tool("probe_pgo_cost_torch"), load_tool("probe_pgo_iters_torch")
+    pq, qb = load_tool("probe_quads_torch"), load_tool("probe_quads_batch_torch")
+    cfg, cam, traj, chunks = c2
+    phase5 = config2["pgo_on"]
+    ccl.ccl_launches = 0
+    rows = {}
+    n_frames = len(traj)
+
+    def keep(name: str, r: dict) -> None:
+        rows[name] = {"fps": n_frames / r["first_s"], "loops": r["loops"],
+                      "ate": r["ate"] if "ate" in r else pc.ate_of(cfg, traj, r["outputs"])}
+        log(f"probes {name}: {rows[name]['fps']:.3f} fps, ATE {rows[name]['ate']:.4f} su, loop edges {r['loops']} "
+            f"[{card}]")
+
+    for name, (pgo, patches) in pc.VARIANTS.items():
+        keep(name, pc.run_variant(cfg, cam, chunks, params, dev, pgo, patches, reps=0))
+    it_rows = {name: pc.run_variant(cfg, cam, chunks, params, dev, pgo, pc.iters_patch(it), reps=0,
+                                    graph_capacity=cap)
+               for name, cap, it, pgo in pc.ATE_ROWS if pgo}
+    for name, r in it_rows.items():
+        keep(name, r)
+    it_equal = pc.same_outputs(it_rows["on_cap16_it6"]["outputs"], it_rows["on_cap16_it4"]["outputs"])
+    check(it_equal, "probes: on_cap16_it6 and on_cap16_it4 outputs differ")
+    for name, pgo, oi, ti in (("iters_off", False, 10, 6), ("iters_on_oi10_ti6", True, 10, 6),
+                              ("iters_on_oi4_ti3", True, 4, 3)):
+        keep(name, pi.iters_row(cfg, cam, traj, chunks, params, dev, pgo, oi, ti, reps=0))
+    torch.cuda.synchronize()
+    launches_pgo = ccl.ccl_launches
+    check(launches_pgo == len(rows) * len(chunks), f"probes: {launches_pgo} CCL launches != {len(rows)} passes x "
+          f"{len(chunks)} chunks")
+    for name, r in rows.items():
+        if name not in ("off", "iters_off"):
+            check(r["ate"] < 1.0 and r["loops"] >= 1, f"probes {name}: ATE {r['ate']} su, {r['loops']} loop edges")
+    # The same step as phase 5's pgo-on side (graph capacity 16, the chunk
+    # schedule's depths 4/3) on the same frames. The cost probe's "on" runs
+    # at build_slam_step's default capacity, 64, as the JAX probe's does.
+    for name in ("iters_on_oi4_ti3", "on_cap16_it6", "on_cap16_it4"):
+        r = rows[name]
+        check(abs(r["ate"] - phase5["ate"]) <= 1e-4 and r["loops"] == phase5["loop_edges"],
+              f"probes {name}: ATE {r['ate']} su and {r['loops']} loop edges, phase 5 {phase5['ate']} and "
+              f"{phase5['loop_edges']}")
+    fps = {k: rows[k]["fps"] for k in pc.VARIANTS}
+    out = {"rows": rows, "pgo_on_over_off": fps["on"] / fps["off"], "recovers_pct": pc.recovers(fps),
+           "it6_it4_equal_outputs": it_equal, "phase5_pgo_on": {"ate": phase5["ate"], "loops": phase5["loop_edges"]},
+           "iters_ratio": {k: rows[k]["fps"] / rows["iters_off"]["fps"]
+                           for k in ("iters_on_oi10_ti6", "iters_on_oi4_ti3")},
+           "card": card}
+    log("probes: " + ", ".join(f"{k} recovers {v:.1f} %" for k, v in out["recovers_pct"].items())
+        + f" of the on/off gap; pgo_on/pgo_off {out['pgo_on_over_off']:.3f} [{card}]")
+
+    # The quads sub-stages at B=8, then the nested prefixes at B=8 and 32.
+    quads = pq.run(dev, BATCH, RES)
+    pq.print_rows(quads)
+    batch = qb.run(dev, RES, 10)
+    torch.cuda.synchronize()
+    for B, b in batch.items():
+        qb.print_rows(B, b["rows"])
+        m = b["maps"]
+        name = "x".join(map(str, m["trinary"].shape))
+        check(torch.equal(m["labels"], ccl.connected_components_plain(m["trinary"])),
+              f"probes: kernel != plain on the {name} map")
+        log(f"ccl probes_{name}: kernel == plain")
+        q = quad_candidates(m["trinary"], m["labels"], m["dec"], pq.PARAMS.quad_decimate, m["level"],
+                            **pq.quads_kwargs(qb.PARAMS))
+        check(torch.equal(torch.nan_to_num(b["outputs"]["full quads"]), torch.nan_to_num(q.corners)),
+              f"probes: the full-quads prefix != quad_candidates at B={B}")
+    small, big = batch[BATCH], batch[max(batch)]
+    check(torch.equal(big["maps"]["frames"][:BATCH], small["maps"]["frames"]),
+          "probes: frames 0-7 of the B=32 render differ from B=8's")
+    check(torch.equal(torch.nan_to_num(big["outputs"]["full quads"][:BATCH]),
+                      torch.nan_to_num(small["outputs"]["full quads"])),
+          "probes: the B=32 run's quads of frames 0-7 differ from the B=8 run's")
+    launches = ccl.ccl_launches
+    check(launches == launches_pgo + 1 + len(batch), f"probes: {launches} CCL launches, expected "
+          f"{launches_pgo} + {1 + len(batch)}")
+    out["quads"] = {"batch": quads["batch"], "rows": quads["rows"]}
+    out["quads_batch"] = {str(B): b["rows"] for B, b in batch.items()}
+    out["ccl_launches"] = {"pgo": launches_pgo, "quads": launches - launches_pgo}
+    return out, launches, big["maps"]["trinary"]
+
+
 def host_syncs(process, chunk) -> Counter:
     """Host syncs of one step, ``process(chunk)``, counted by the line of the
     port that made them."""
@@ -1307,7 +1413,7 @@ def main() -> int:
     headline_ba = slam.ba_state
 
     # ---- 5. config 2 ------------------------------------------------------
-    config2, config2_launches = config2_phase(params, dev, card)
+    config2, config2_launches, config2_frames = config2_phase(params, dev, card)
 
     # ---- 6. the other estimators and schedules, the sparse coupling -------
     options = options_phase(chunks[0], cfg, cam, params, dev, headline_ba, headline)
@@ -1369,7 +1475,20 @@ def main() -> int:
         f"({ccl_timing['device_ms'][name12]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name12]:.5f} ms "
         f"(bytes) [{card}]")
 
-    # ---- 13. report -------------------------------------------------------
+    # ---- 13. the loop-closure cost and quads probes -----------------------
+    t0 = time.perf_counter()
+    probes, launches_probes, quads_map = probes_phase(card, params, dev, config2, config2_frames)
+    probes["phase_s"] = time.perf_counter() - t0
+    log(f"probes phase: {probes['phase_s']:.1f} s")
+    name13 = "probes_32x500x500"
+    ccl_timing["ms"][name13] = time_cuda(lambda: ccl.connected_components(quads_map), 200)
+    ccl_timing["device_ms"][name13] = time_cuda_graph(lambda: ccl.connected_components(quads_map))
+    ccl_timing["bound_ms"][name13] = quads_map.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    log(f"ccl timing {name13}: kernel {ccl_timing['ms'][name13]:.4f} ms "
+        f"({ccl_timing['device_ms'][name13]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name13]:.5f} ms "
+        f"(bytes) [{card}]")
+
+    # ---- 14. report -------------------------------------------------------
     kernels = [{
         "name": "ccl",
         "route": "cuda",
@@ -1384,6 +1503,7 @@ def main() -> int:
         "launches_bench": bench["ccl_launches"],
         "launches_profile": launches_profile,
         "launches_robustness": launches_robustness,
+        "launches_probes": launches_probes,
         "max_abs_err": max_err,
         "match": max_err == 0,
         "ms": kernel_ms,
@@ -1408,6 +1528,7 @@ def main() -> int:
     log(json.dumps({"kf_proc": {"gpu": tools["kf_proc_gpu"], "cpu": tools["kf_proc_cpu"],
                                 "phase_s": tools["phase_s"], "card": card}}))
     log(json.dumps({"robustness": robustness}))
+    log(json.dumps({"probes": probes}))
     log(json.dumps({"ccl_timing": ccl_timing}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,6 +1,7 @@
 """The port's bench (``bench_torch.py``) and its CLI (``aprilslam-torch-bench``)
 against ``bench.py`` and the JAX CLI, on the CPU."""
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -8,6 +9,7 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -69,6 +71,37 @@ def knobs(monkeypatch, tmp_path, bench):
     monkeypatch.setattr(bench, "PARTIAL_PATH", tmp_path / "BENCH_partial_torch.json")
     monkeypatch.setattr(sys, "path", list(sys.path))
     return lambda **kv: [monkeypatch.setenv(k, str(v)) for k, v in kv.items()]
+
+
+@contextlib.contextmanager
+def process_restored():
+    """Leave the process as it was found, whatever ran inside: the
+    ``bench_torch`` entry of ``sys.modules`` (the CLI registers the bench it
+    loads under that name), every ``BENCH_*`` variable (the CLI writes
+    ``os.environ`` itself) and ``sys.path``. Unlike ``monkeypatch.delenv``
+    on an absent key, this undoes a key that was absent before."""
+    absent = object()
+    module = sys.modules.get("bench_torch", absent)
+    env = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    path = list(sys.path)
+    try:
+        yield
+    finally:
+        if module is absent:
+            sys.modules.pop("bench_torch", None)
+        else:
+            sys.modules["bench_torch"] = module
+        for k in [k for k in os.environ if k.startswith("BENCH_") and k not in env]:
+            del os.environ[k]
+        os.environ.update(env)
+        sys.path[:] = path
+
+
+def run_cli(cli, argv) -> int:
+    """``cli.main(argv)`` inside ``process_restored``: every CLI test calls
+    a CLI through this."""
+    with process_restored():
+        return cli.main(argv)
 
 
 def _json_lines(text: str) -> list:
@@ -142,7 +175,7 @@ def test_cli_without_a_gpu_exits_nonzero(knobs, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     monkeypatch.chdir(ROOT)
-    assert TCLI.main([]) != 0
+    assert run_cli(TCLI, []) != 0
     out = capsys.readouterr()
     assert _json_lines(out.out) == []
     assert "CUDA" in out.err
@@ -199,7 +232,7 @@ def test_cli_maps_flags_as_the_jax_cli(argv, knobs, tmp_path, monkeypatch):
         monkeypatch.chdir(d)
         for k in KNOBS:
             monkeypatch.delenv(k, raising=False)
-        rc = cli.main(argv)
+        rc = run_cli(cli, argv)
         got[name] = rc, json.loads((d / "knobs.json").read_text())
     assert got["torch"][1] == got["jax"][1]
     assert got["torch"][0] == 7 and got["jax"][0] == 0
@@ -207,8 +240,35 @@ def test_cli_maps_flags_as_the_jax_cli(argv, knobs, tmp_path, monkeypatch):
 
 def test_cli_without_bench_file_returns_2(knobs, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    assert TCLI.main([]) == 2
+    assert run_cli(TCLI, []) == 2
     assert "bench_torch.py not found in cwd" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bench_before", ["absent", "another"])
+def test_cli_leaves_the_process_as_it_found_it(bench_before, tmp_path, monkeypatch):
+    """The CLI registers the bench it runs as ``sys.modules["bench_torch"]``
+    and sets BENCH_* variables; after ``run_cli`` the module entry, every
+    BENCH_* variable and ``sys.path`` are as before, whether the entry was
+    absent or held another module. (A fake bench left there by this test's
+    CLI call once broke ``tests/test_torch_probes.py`` in the same worker.)"""
+    (tmp_path / "bench_torch.py").write_text(FAKE_BENCH)
+    monkeypatch.chdir(tmp_path)
+    if bench_before == "absent":
+        monkeypatch.delitem(sys.modules, "bench_torch", raising=False)
+    else:
+        monkeypatch.setitem(sys.modules, "bench_torch", types.ModuleType("bench_torch"))
+    monkeypatch.setenv("BENCH_RES", "123")
+    for k in ("BENCH_BATCH", "BENCH_CHUNKS", "BENCH_DEVICE"):
+        monkeypatch.delenv(k, raising=False)
+    before_module = sys.modules.get("bench_torch")
+    before_env = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    before_path = list(sys.path)
+    assert run_cli(TCLI, ["--cpu", "--batch", "4"]) == 7
+    # The CLI did run, and set its knobs while it ran.
+    assert json.loads((tmp_path / "knobs.json").read_text())["BENCH_DEVICE"] == "cpu"
+    assert sys.modules.get("bench_torch") is before_module
+    assert {k: v for k, v in os.environ.items() if k.startswith("BENCH_")} == before_env
+    assert sys.path == before_path
 
 
 def _frames(cfg, cam, traj, res):

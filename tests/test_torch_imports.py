@@ -57,7 +57,8 @@ def _imported_roots(path: Path) -> set[str]:
 TOOLS = ["tools/ccl_ab.py", "tools/scaling_bench_torch.py", "tools/scaling_proc_worker_torch.py",
          "tools/profile_step_torch.py", "tools/probe_robustness_torch.py", "tools/probe_detect_stages_torch.py",
          "tools/probe_ascii_torch.py", "tools/probe_ate_dist_torch.py", "tools/probe_tail_split_torch.py",
-         "tools/probe_negev_torch.py"]
+         "tools/probe_negev_torch.py", "tools/probe_pgo_cost_torch.py", "tools/probe_pgo_iters_torch.py",
+         "tools/probe_quads_torch.py", "tools/probe_quads_batch_torch.py"]
 
 
 @pytest.mark.parametrize("rel", PORT_FILES + ["bench_torch.py", "chip_smoke.py"] + TOOLS)

@@ -80,6 +80,10 @@ def _bench():
     _load("probe_ate_dist_torch")
     import bench_torch
 
+    where = getattr(bench_torch, "__file__", None)
+    assert where is not None and Path(where).resolve() == ROOT / "bench_torch.py", (
+        f"sys.modules['bench_torch'] is {bench_torch!r}, not the repo's bench_torch.py: an earlier test in "
+        "this process left another module under that name")
     return bench_torch
 
 

@@ -34,6 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 # Kernel launches through the wrapper (one per labelled batch).
 ccl_launches = 0
+# The frame is a grid dimension of at most 65535 blocks (gridDim.z of
+# ccl_local, gridDim.y of ccl_border and ccl_resolve); every offset into the
+# batch is a size_t, so nothing else bounds B.
+MAX_FRAMES = 65535
 
 _lib = None
 # The service's handler threads may make the first call together: one
@@ -111,6 +115,8 @@ def connected_components(trinary: torch.Tensor) -> torch.Tensor:
     B, H, W = trinary.shape
     if H * W >= 2**31 - 1:
         raise ValueError("frames of 2**31 - 1 pixels or more do not fit int32 labels")
+    if B > MAX_FRAMES:
+        raise ValueError(f"the kernel's grid takes at most {MAX_FRAMES} frames per call, got {B}")
     lib = _library()
     labels = torch.empty((B, H, W), dtype=torch.int32, device=trinary.device)
     with torch.cuda.device(trinary.device):

@@ -1,13 +1,15 @@
 """Multi-sequence SLAM: independent trajectories, one state each
 (port of ``aprilslam_tpu/parallel/sequences.py``).
 
-BASELINE config 3, "8 simulated trajectories processed in parallel". The
-JAX package maps the step over the sequences of a ``data`` mesh axis. The
-port's step is a host loop over each chunk's frames (``slam/pipeline.py``),
-so ``parallel_step`` runs the S sequences' steps one after another on the
-mesh's device, each with its own state; detection is not batched across
-sequences. The sequences share nothing, so the outputs are those of S
-separate steps, stacked.
+BASELINE config 3, "8 simulated trajectories processed in parallel (batched
+detection + independent BA)". The JAX package maps the whole step over the
+sequences of a ``data`` mesh axis. The port's step splits at the
+detect -> geometry boundary (``slam/pipeline.py``): ``parallel_step`` runs
+the front end (detection, with the CCL kernel on the card, and PnP) once
+over the S x B frames of every sequence, then each sequence's back end, a
+host loop over its chunk's frames, on its own state, in sequence order. The
+front end works frame by frame and the sequences share nothing else, so the
+outputs are those of S separate steps, stacked.
 """
 
 from __future__ import annotations
@@ -16,10 +18,10 @@ from dataclasses import fields
 
 import torch
 
-from ..detect import DetectorParams
+from ..detect import Detections, DetectorParams
 from ..families import TagFamily
 from ..geometry import PinholeCamera
-from ..slam.pipeline import SlamOutputs, build_slam_step
+from ..slam.pipeline import SlamOutputs, _step_halves, build_slam_step
 from .mesh import Mesh
 
 
@@ -44,8 +46,9 @@ def build_parallel_slam(
 
     ``step_kwargs`` forward to :func:`build_slam_step`: the production
     configuration (``estimator="ba"``, ``ba_schedule="chunk"``,
-    ``pgo=True``, ...) runs per sequence; the pose-graph state is
-    per-sequence too.
+    ``pgo=True``, ...) runs its back end per sequence; the pose-graph state
+    is per-sequence too. The detector and PnP run once per call over all
+    S x B frames.
     """
     n_seq = mesh.local_size(axis)
     step, init_one = build_slam_step(
@@ -57,14 +60,20 @@ def build_parallel_slam(
         **step_kwargs,
     )
 
+    front, back = _step_halves(step)
+
     def parallel_step(states: list, frames):
         frames = shard(frames)
         if len(states) != n_seq or frames.shape[0] != n_seq:
             raise ValueError(f"expected {n_seq} states and sequences, got {len(states)} "
                              f"and {frames.shape[0]}")
+        B = frames.shape[1]
+        det, *poses = front(frames.reshape((n_seq * B,) + frames.shape[2:]))
         new_states, outs = [], []
         for s in range(n_seq):
-            st, o = step(states[s], frames[s])
+            rows = slice(s * B, (s + 1) * B)
+            det_s = Detections(**{f.name: getattr(det, f.name)[rows] for f in fields(Detections)})
+            st, o = back(states[s], (det_s, *(x[rows] for x in poses)))
             new_states.append(st)
             outs.append(o)
         return new_states, SlamOutputs(**{

@@ -84,6 +84,23 @@ def _ippe_rotations(H_obj: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
     return torch.stack([build(c0, c1), build(-c0, -c1)], dim=-3)
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of ``a * b`` over ``dim``, accumulated in index order.
+
+    The normal equations below contract this way, not with batched matrix
+    products: on the card cuBLAS picks its batched kernels by the batch
+    count, and they round differently, so a tag's pose would depend on how
+    many frames share the call (config 3 runs every sequence's frames in
+    one call). Elementwise products and sums give every tag the same bits
+    whatever the batch, and on the CPU the same bits as its batched matmul
+    at these sizes, which also accumulates in order."""
+    p = a * b
+    acc = p.select(dim, 0)
+    for k in range(1, p.shape[dim]):
+        acc = acc + p.select(dim, k)
+    return acc
+
+
 def _translation_for_rotation(R, obj, corners, K_inv):
     """Least-squares translation given rotation (..., 3, 3) -> (..., 3),
     via the 3x3 normal equations of the 8 linear corner equations."""
@@ -97,8 +114,8 @@ def _translation_for_rotation(R, obj, corners, K_inv):
     r2 = torch.stack([zeros, mones, u[..., 1]], dim=-1)
     A = torch.cat([r1, r2], dim=-2)  # (..., 8, 3)
     b = torch.cat([RX[..., 0] - u[..., 0] * RX[..., 2], RX[..., 1] - u[..., 1] * RX[..., 2]], dim=-1)
-    AtA = torch.einsum("...ri,...rj->...ij", A, A) + 1e-9 * torch.eye(3, dtype=A.dtype, device=A.device)
-    Atb = torch.einsum("...ri,...r->...i", A, b)
+    AtA = _dot(A[..., :, None], A[..., None, :], -3) + 1e-9 * torch.eye(3, dtype=A.dtype, device=A.device)
+    Atb = _dot(A, b[..., None], -2)
     return torch.linalg.solve_ex(AtA, Atb[..., None]).result[..., 0]
 
 
@@ -126,9 +143,9 @@ def _refine(T0, corners, obj, K, iters: int, lm_lambda: float):
     for _ in range(iters):
         r = res_b(z6, T, corners)
         J = jac_b(z6, T, corners)  # (N, 8, 6)
-        A = J.transpose(-1, -2) @ J
+        A = _dot(J[..., :, None], J[..., None, :], -3)
         A = A + lm_lambda * torch.diag_embed(torch.diagonal(A, dim1=-2, dim2=-1)) + 1e-9 * eye6
-        g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
+        g = _dot(J, r[..., None], -2)
         xi = -torch.linalg.solve_ex(A, g[..., None]).result[..., 0]
         T_new = se3_exp(xi) @ T
         r_new = res_b(z6, T_new, corners)

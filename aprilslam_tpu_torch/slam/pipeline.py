@@ -9,6 +9,10 @@ one LM-BA solve refines the map at the chunk boundary, and every frame is
 re-localized against the final map; under ``ba_schedule="frame"`` the
 localization and the BA solve run inside the loop. Pose observability is
 evaluated against the final map, batched over the chunk.
+
+The step is its back end applied to its front end (detection and PnP),
+which works frame by frame: ``parallel/sequences.py`` runs the front end
+once over every sequence's frames (``_step_halves``).
 """
 
 from __future__ import annotations
@@ -372,7 +376,19 @@ def build_slam_step(
             use, keep,
         )
 
-    def slam_step(state, frames):
+    def front(frames):
+        """Detection, undistortion and PnP of (N, H, W[, 3]) frames. Every
+        output is per frame, so N may hold several sequences' chunks.
+        Returns (det, T, ok, seed, T_alt)."""
+        det = detect(torch.as_tensor(frames, device=dev))
+        if dist is not None:
+            det = replace(det, corners=undistort_pixels(det.corners, K, dist))
+        T_all, ok_all, _rms, seed_all, T_alt_all = poses_from_detections(
+            det, K, tag_size, iters=pnp_iters)
+        return det, T_all, ok_all, seed_all, T_alt_all
+
+    def back(state, front_out):
+        """The chunk's back end from ``front``'s outputs for its B frames."""
         pgo_s = tg = None
         if use_pgo:
             graph, ba, pgo_s, tg = state
@@ -380,14 +396,9 @@ def build_slam_step(
             graph, ba = state
         else:
             graph, ba = state, None
-        frames = torch.as_tensor(frames, device=dev)
-        B = frames.shape[0]
-        det = detect(frames)
-        if dist is not None:
-            det = replace(det, corners=undistort_pixels(det.corners, K, dist))
-        T_all, ok_all, _rms, seed_all, T_alt_all = poses_from_detections(
-            det, K, tag_size, iters=pnp_iters)
+        det, T_all, ok_all, seed_all, T_alt_all = front_out
         ids = det.ids
+        B = ids.shape[0]
         pre = pre_localize(ba, ids, ok_all, seed_all, det.corners, T_all, T_alt_all) if chunk_ba else None
 
         outs = []
@@ -464,6 +475,11 @@ def build_slam_step(
             return (graph, ba, pgo_s, tg), outs
         return ((graph, ba) if use_ba else graph), outs
 
+    def slam_step(state, frames):
+        return back(state, front(frames))
+
+    slam_step._halves = (front, back)
+
     def init():
         g = init_graph(graph_capacity, device=dev)
         if not use_ba:
@@ -475,6 +491,13 @@ def build_slam_step(
                 taggraph_init(graph_capacity, device=dev))
 
     return slam_step, init
+
+
+def _step_halves(step):
+    """(front, back) of a step built by :func:`build_slam_step`:
+    ``step(state, frames) == back(state, front(frames))``, where ``front``
+    (detection and PnP) works frame by frame over any batch."""
+    return step._halves
 
 
 class SlamSystem:

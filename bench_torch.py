@@ -394,8 +394,9 @@ def bench_multiseq_leg(cfg, params, res, dev, run: Run, n_seq=8, batch=8, passes
     """BASELINE config 3 (bench.py:465-522): ``n_seq`` independent
     trajectories of 2 chunks each through ``build_parallel_slam`` on one
     device, one warm chunk, then ``passes`` timed passes. bench.py vmaps the
-    step over the sequences; the port's parallel step runs the sequences'
-    steps one after another (``parallel/sequences.py``).
+    step over the sequences; the port's parallel step runs the detector and
+    PnP once per chunk over all ``n_seq * batch`` frames, then each
+    sequence's back end (``parallel/sequences.py``).
 
     Returns (report, every step's outputs in order: the warm chunk's, then
     each timed pass's, each stacked (n_seq, batch, ...))."""

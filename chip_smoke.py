@@ -47,11 +47,17 @@ Phases (any failed check exits non-zero):
    generated 1024-code family against the built-in one on 8 headline poses;
 9. the parallel package: BASELINE config 3 (``bench_torch``'s multiseq
    leg, ``bench.py:465-522``: 8 sequences x 2 chunks of 8 frames at
-   1000x1000 through ``build_parallel_slam``, a warm chunk and one timed
-   pass (the bench's 4 cut for time), each sequence's ATE over that pass,
-   then one chunk with both pose graphs on); config 5 on the keyframe axis
-   (10240 keyframes, 256 tags, 4 LM x 32 PCG) and the landmark axis (10240
-   tags, 64 keyframes, 16384 observations, 4 LM) through
+   1000x1000 through ``build_parallel_slam``, which runs the detector and
+   PnP once per chunk over all 64 frames, then each sequence's back end: a
+   warm chunk and one timed pass (the bench's 4 cut for time), one CCL
+   launch per chunk, each sequence's ATE over that pass; the warm chunk
+   against the eight sequences' own steps (integers equal, the largest
+   float gaps); the batched front end's peak memory; the batched step and
+   the per-sequence loop interleaved, a chunk each in turn; the kernel on
+   the 64x500x500 map against its plain version and the scipy oracle,
+   timed; then one chunk with both pose graphs on); config 5 on the
+   keyframe axis (10240 keyframes, 256 tags, 4 LM x 32 PCG) and the
+   landmark axis (10240 tags, 64 keyframes, 16384 observations, 4 LM) through
    ``tools/scaling_bench_torch.py`` (8 shards on the one card against 1
    shard, and against ``ba_optimize`` with the sparse coupling), with the
    landmark solve once more on a single-rank NCCL process group;
@@ -88,8 +94,9 @@ Phases (any failed check exits non-zero):
    prefix equal to ``quad_candidates``, frames 0-7 of B=32 giving B=8's
    quads, the kernel's 8x500x500 and 32x500x500 labels equal to the plain
    version's;
-14. the CCL timing line (the config-4 map 8x240x320, a degraded 3x512x512
-   map and the probes' 32x500x500 map included), one JSON line per kernel,
+14. the CCL timing line (the config-4 map 8x240x320, config 3's batched
+   64x500x500 map, a degraded 3x512x512 map and the probes' 32x500x500 map
+   included), one JSON line per kernel,
    the card line, and a final JSON status line.
 """
 
@@ -269,6 +276,18 @@ def time_cuda_graph(fn, reps: int = 20, replays: int = 20) -> float:
         for _ in range(reps):
             fn()
     return time_cuda(graph.replay, replays) / reps
+
+
+def time_ccl_map(ccl_timing: dict, name: str, t: torch.Tensor, card: str) -> None:
+    """The kernel on map ``t``: eager and device ms beside its byte bound,
+    into ``ccl_timing`` under ``name``."""
+    from aprilslam_tpu_torch.ops import ccl
+
+    ccl_timing["ms"][name] = time_cuda(lambda: ccl.connected_components(t), 200)
+    ccl_timing["device_ms"][name] = time_cuda_graph(lambda: ccl.connected_components(t))
+    ccl_timing["bound_ms"][name] = t.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    log(f"ccl timing {name}: kernel {ccl_timing['ms'][name]:.4f} ms ({ccl_timing['device_ms'][name]:.4f} ms on the "
+        f"card), bound {ccl_timing['bound_ms'][name]:.5f} ms (bytes) [{card}]")
 
 
 def check_outputs(outs, n: int, what: str) -> None:
@@ -798,7 +817,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
+def parallel_phase(params, dev, card: str) -> tuple[dict, dict, torch.Tensor]:
     """The parallel package (ROADMAP item 17): BASELINE config 3 through
     ``build_parallel_slam`` (``bench.py:465-522``), config 5 on the
     keyframe axis and the landmark axis through
@@ -806,11 +825,13 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     card against 1 shard and against ``ba_optimize``), the landmark solve on
     a single-rank NCCL group, ``aprilslam-torch-refine --demo`` in process,
     and a CLI run's ``--export-problem`` refined on the card. Returns the
-    report and the CCL launches of config 3."""
+    report, the CCL launches of config 3 and its batched 64x500x500 trinary
+    map."""
     import torch.distributed as dist
     from bench_torch import Run, bench_multiseq_leg, multiseq_chunks
 
     from aprilslam_tpu_torch.apps import refine_trajectory
+    from aprilslam_tpu_torch.detect.threshold import adaptive_threshold_with_levels, decimate, to_grayscale
     from aprilslam_tpu_torch.eval import ate_eval
     from aprilslam_tpu_torch.geometry import PinholeCamera
     from aprilslam_tpu_torch.ops import ccl
@@ -819,14 +840,16 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     from aprilslam_tpu_torch.parallel.multihost import make_global
     from aprilslam_tpu_torch.parallel.distributed_ba import LM_SHARDED
     from aprilslam_tpu_torch.sim import SceneConfig, trajectory
-    from aprilslam_tpu_torch.slam import SlamOutputs, ba_cost
+    from aprilslam_tpu_torch.slam import SlamOutputs, ba_cost, build_slam_step
+    from aprilslam_tpu_torch.slam.pipeline import _step_halves
 
     out = {"card": card}
     launches = {}
 
     # (a) config 3 through bench_torch's leg: 8 sequences x 2 chunks of 8
     # frames at 1000x1000, a warm chunk and one timed pass (the bench's 4
-    # are cut for time: each pass is 16 steps).
+    # are cut for time). The detector and PnP run once per chunk over the
+    # 64 frames of all sequences: one CCL launch per chunk.
     cfg = SceneConfig.from_file()
     cam = PinholeCamera.from_fov(RES, RES, cfg.fov_y)
     passes = 1
@@ -835,9 +858,9 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
                                   passes=passes)
     n_chunks = (len(outs) - 1) // passes
     launches["leg"] = ccl.ccl_launches
-    check(launches["leg"] == CONFIG3_SEQ * (1 + n_chunks * passes),
-          f"config 3: CCL launches {launches['leg']} != {CONFIG3_SEQ} x {1 + n_chunks * passes}")
-    launches["per_pass"] = CONFIG3_SEQ * n_chunks
+    check(launches["leg"] == 1 + n_chunks * passes,
+          f"config 3: CCL launches {launches['leg']} != 1 + {n_chunks} x {passes}")
+    launches["per_pass"] = n_chunks
     for o in outs:
         for name, v in vars(o).items():
             check(v.device.type == "cuda", f"config 3: output {name} is on {v.device}")
@@ -855,13 +878,70 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     check(bool(torch.isfinite(torch.cat([o.poses[o.valid] for o in timed_outs])).all()),
           "config 3: a valid pose is not finite")
     check(c3["valid_rate"] >= 0.95, f"config 3: valid rate {c3['valid_rate']} < 0.95")
+    chunks = multiseq_chunks(cfg, cam, RES, dev, CONFIG3_SEQ, BATCH)
+    # The warm chunk through each sequence's own step, one after another (the
+    # loop the batched step replaced): integers equal to the batched step's,
+    # and the largest float gaps.
+    step, init = build_slam_step(cfg.family, cam, cfg.tag_size_inner, detector_params=params, device=dev, **CONFIG3)
+    looped = [step(init(), chunks[0][s]) for s in range(CONFIG3_SEQ)]
+    warm = {"bit_equal": True}
+    for f in fields(SlamOutputs):
+        got, want = getattr(outs[0], f.name), torch.stack([getattr(o, f.name) for _st, o in looped])
+        warm["bit_equal"] &= torch.equal(got, want)
+        if got.is_floating_point():
+            warm[f"{f.name}_max_gap"] = float((got - want).abs().nan_to_num().max())
+        else:
+            check(torch.equal(got, want), f"config 3: batched {f.name} != the per-sequence steps'")
+    c3["warm_chunk_vs_per_sequence"] = warm
+    log(f"config 3 warm chunk, batched against per-sequence: integers equal, bit equal {warm['bit_equal']}, pose gap "
+        f"{warm['poses_max_gap']}, corner gap {warm['det_corners_max_gap']} [{card}]")
+    # Peak memory of the batched front end at 64x1000x1000.
+    front, _back = _step_halves(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    front(chunks[0].reshape((-1,) + chunks[0].shape[2:]))
+    torch.cuda.synchronize()
+    c3["front_peak_mem_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # The batched step against the per-sequence loop, interleaved: from the
+    # warm chunk's states each takes chunk 1 then chunk 0, in the order
+    # batched, looped, looped, batched, one timed chunk at a time.
+    pstep, init_states, _ = build_parallel_slam(make_mesh(CONFIG3_SEQ, axis="data", device=dev), cfg.family, cam,
+                                                cfg.tag_size_inner, detector_params=params, **CONFIG3)
+    st_b, _o = pstep(init_states(), chunks[0])
+    st_l = [st for st, _o in looped]
+
+    def batched_chunk(c):
+        nonlocal st_b
+        st_b, _o = pstep(st_b, c)
+
+    def looped_chunk(c):
+        for s in range(CONFIG3_SEQ):
+            st_l[s], _o = step(st_l[s], c[s])
+
+    fps = {"batched": [], "looped": []}
+    peak = {}
+    for name, k in (("batched", 1), ("looped", 1), ("looped", 0), ("batched", 0)):
+        torch.cuda.reset_peak_memory_stats()
+        _r, dt = timed(lambda: (batched_chunk if name == "batched" else looped_chunk)(chunks[k]))
+        fps[name].append(CONFIG3_SEQ * BATCH / dt)
+        peak[name] = max(peak.get(name, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+    c3["interleaved"] = {"aggregate_fps": fps, "peak_mem_gb": peak,
+                         "batched_over_looped": sum(fps["batched"]) / sum(fps["looped"])}
+    log(f"config 3 interleaved: aggregate fps batched {fps['batched']}, looped {fps['looped']}; peak GB {peak}; "
+        f"batched front end alone {c3['front_peak_mem_gb']:.3f} GB above its input [{card}]")
+    # The CCL on config 3's batched map: the 64 frames of the warm chunk.
+    dec = decimate(to_grayscale(chunks[0].reshape((-1,) + chunks[0].shape[2:])), params.quad_decimate)
+    config3_map = adaptive_threshold_with_levels(dec, tile=params.tile, min_contrast=params.min_contrast)[0].contiguous()
+
     # One chunk with both pose graphs on (the production composition).
-    chunk0 = multiseq_chunks(cfg, cam, RES, dev, CONFIG3_SEQ, BATCH)[0]
+    chunk0 = chunks[0]
     pstep_pgo, init_pgo, _ = build_parallel_slam(make_mesh(CONFIG3_SEQ, axis="data", device=dev), cfg.family, cam,
                                                  cfg.tag_size_inner, detector_params=params, pgo=True, **CONFIG3)
     ccl.ccl_launches = 0
     (st_pgo, o_pgo), pgo_s = timed(lambda: pstep_pgo(init_pgo(), chunk0))
     launches["pgo_chunk"] = ccl.ccl_launches
+    check(launches["pgo_chunk"] == 1, f"config 3 pgo: {launches['pgo_chunk']} CCL launches, not 1")
     c3["pgo_chunk"] = {"valid_rate": float(o_pgo.valid.float().mean()), "s": pgo_s,
                        "finite": bool(torch.isfinite(o_pgo.poses[o_pgo.valid]).all()),
                        "pgo_frames": [int(s[2].frame) for s in st_pgo], "ccl_launches": launches["pgo_chunk"]}
@@ -973,7 +1053,7 @@ def parallel_phase(params, dev, card: str) -> tuple[dict, dict]:
     refine["export"] = {"cli": summary, "cli_wall_s": wall, "refine": rep}
     out["refine"] = refine
     log(f"refine: {json.dumps(refine)} [{card}]")
-    return out, launches
+    return out, launches, config3_map
 
 
 def bench_phase(card: str, kind: str) -> dict:
@@ -1430,21 +1510,25 @@ def main() -> int:
     config4, config4_launches, config4_map = config4_phase(dev, card, traj, rt_build_s)
     config4["phase_s"] = time.perf_counter() - t0
     log(f"config 4 phase: {config4['phase_s']:.1f} s")
-    name4 = "config4_8x240x320"
-    ccl_timing["ms"][name4] = time_cuda(lambda: ccl.connected_components(config4_map), 200)
-    ccl_timing["device_ms"][name4] = time_cuda_graph(lambda: ccl.connected_components(config4_map))
-    ccl_timing["bound_ms"][name4] = config4_map.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
     check(np.array_equal(ccl.connected_components(config4_map).cpu().numpy(),
                          scipy_labels(config4_map.cpu().numpy())), "kernel != scipy oracle on the config-4 map")
-    log(f"ccl timing {name4}: kernel {ccl_timing['ms'][name4]:.4f} ms "
-        f"({ccl_timing['device_ms'][name4]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name4]:.5f} ms "
-        f"(bytes) [{card}]")
+    time_ccl_map(ccl_timing, "config4_8x240x320", config4_map, card)
 
     # ---- 9. the parallel package ------------------------------------------
     t0 = time.perf_counter()
-    parallel, config3_launches = parallel_phase(params, dev, card)
+    parallel, config3_launches, config3_map = parallel_phase(params, dev, card)
     parallel["phase_s"] = time.perf_counter() - t0
     log(f"parallel phase: {parallel['phase_s']:.1f} s")
+    # Config 3's batched map (8 sequences x 8 frames): the kernel against its
+    # plain version and the scipy oracle, bit for bit, then timed.
+    name9 = "config3_" + "x".join(map(str, config3_map.shape))
+    got = ccl.connected_components(config3_map)
+    check(torch.equal(got, ccl.connected_components_plain(config3_map)), f"kernel != plain on the {name9} map")
+    check(np.array_equal(got.cpu().numpy(), scipy_labels(config3_map.cpu().numpy())),
+          f"kernel != scipy oracle on the {name9} map")
+    log(f"ccl {name9}: kernel == plain == oracle")
+    time_ccl_map(ccl_timing, name9, config3_map, card)
+    ccl_timing[f"launch_ms_{name9}"] = launch_split(lambda: ccl.connected_components(config3_map))
 
     # ---- 10. the port's bench ----------------------------------------------
     t0 = time.perf_counter()
@@ -1467,26 +1551,14 @@ def main() -> int:
     robustness, launches_robustness, noisy_map = robustness_phase(card, cfg, cam, traj, outs, main_ba, ate)
     robustness["phase_s"] = time.perf_counter() - t0
     log(f"robustness phase: {robustness['phase_s']:.1f} s")
-    name12 = "degraded_noise0.10_3x512x512"
-    ccl_timing["ms"][name12] = time_cuda(lambda: ccl.connected_components(noisy_map), 200)
-    ccl_timing["device_ms"][name12] = time_cuda_graph(lambda: ccl.connected_components(noisy_map))
-    ccl_timing["bound_ms"][name12] = noisy_map.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
-    log(f"ccl timing {name12}: kernel {ccl_timing['ms'][name12]:.4f} ms "
-        f"({ccl_timing['device_ms'][name12]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name12]:.5f} ms "
-        f"(bytes) [{card}]")
+    time_ccl_map(ccl_timing, "degraded_noise0.10_3x512x512", noisy_map, card)
 
     # ---- 13. the loop-closure cost and quads probes -----------------------
     t0 = time.perf_counter()
     probes, launches_probes, quads_map = probes_phase(card, params, dev, config2, config2_frames)
     probes["phase_s"] = time.perf_counter() - t0
     log(f"probes phase: {probes['phase_s']:.1f} s")
-    name13 = "probes_32x500x500"
-    ccl_timing["ms"][name13] = time_cuda(lambda: ccl.connected_components(quads_map), 200)
-    ccl_timing["device_ms"][name13] = time_cuda_graph(lambda: ccl.connected_components(quads_map))
-    ccl_timing["bound_ms"][name13] = quads_map.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
-    log(f"ccl timing {name13}: kernel {ccl_timing['ms'][name13]:.4f} ms "
-        f"({ccl_timing['device_ms'][name13]:.4f} ms on the card), bound {ccl_timing['bound_ms'][name13]:.5f} ms "
-        f"(bytes) [{card}]")
+    time_ccl_map(ccl_timing, "probes_32x500x500", quads_map, card)
 
     # ---- 14. report -------------------------------------------------------
     kernels = [{
@@ -1500,6 +1572,8 @@ def main() -> int:
         "launches_serve": launches_serve,
         "launches_config4": config4_launches,
         "launches_config3": config3_launches,
+        "config3_map": {"shape": list(config3_map.shape), "ms": ccl_timing["ms"][name9],
+                        "device_ms": ccl_timing["device_ms"][name9], "bound_ms": ccl_timing["bound_ms"][name9]},
         "launches_bench": bench["ccl_launches"],
         "launches_profile": launches_profile,
         "launches_robustness": launches_robustness,

@@ -97,6 +97,12 @@ def test_kernel_on_stress_inputs(card):
 
 
 @pytest.mark.cuda
+def test_kernel_on_config3_batch(card):
+    """BASELINE config 3's batched map: 8 sequences x 8 frames in one call."""
+    check_kernel(block_image(np.random.default_rng(3), 64, 500, 500), card)
+
+
+@pytest.mark.cuda
 @settings(max_examples=30, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(B=st.integers(1, 8), H=st.integers(1, 600), W=st.integers(1, 600),
        block=st.integers(1, 40), seed=st.integers(0, 2**32 - 1))
@@ -114,3 +120,5 @@ def test_kernel_refuses_what_it_does_not_take(card):
         ccl.connected_components(torch.zeros((8, 8), dtype=torch.int8, device=card))
     with pytest.raises(ValueError):
         ccl.connected_components(torch.zeros((1, 8, 16), dtype=torch.int8, device=card)[:, :, ::2])
+    with pytest.raises(ValueError, match="frames per call"):
+        ccl.connected_components(torch.zeros((ccl.MAX_FRAMES + 1, 1, 1), dtype=torch.int8, device=card))

@@ -11,10 +11,10 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..families import TagFamily, get_family
+from ..utils.profiling import span
 from .decode import Detections, FamilyTensors, decode_quads
 from .quads import quad_candidates
 from .refine import refine_corners
@@ -62,15 +62,15 @@ def detect_fn(family: str | TagFamily = "tagStandard41h12",
     p = params or DetectorParams()
 
     def run(frames: torch.Tensor) -> Detections:
-        # One profiler range per stage, as the JAX detector's named scopes:
-        # tools/profile_step_torch.py groups device time by them.
-        with record_function("stage_threshold"):
+        # One span per stage, as the JAX detector's named scopes; the
+        # profilers group device time by them.
+        with span("stage_threshold"):
             gray = to_grayscale(frames)
             dec = decimate(gray, p.quad_decimate)
             trinary, level = adaptive_threshold_with_levels(dec, tile=p.tile, min_contrast=p.min_contrast)
-        with record_function("stage_ccl"):
+        with span("stage_ccl"):
             labels = connected_components(trinary.contiguous())
-        with record_function("stage_quads"):
+        with span("stage_quads"):
             quads = quad_candidates(
                 trinary, labels, dec, p.quad_decimate, level,
                 max_clusters=p.max_clusters,
@@ -82,7 +82,7 @@ def detect_fn(family: str | TagFamily = "tagStandard41h12",
                 max_fit_err=p.max_fit_err,
                 max_boundary=p.max_boundary,
             )
-        with record_function("stage_decode"):
+        with span("stage_decode"):
             det = decode_quads(
                 gray, quads, ft,
                 max_hamming=p.max_hamming,
@@ -90,7 +90,7 @@ def detect_fn(family: str | TagFamily = "tagStandard41h12",
                 max_detections=p.max_detections,
             )
         if p.refine_edges and p.quad_decimate > 1:
-            with record_function("stage_refine"):
+            with span("stage_refine"):
                 refined = refine_corners(gray, det.corners, det.valid,
                                          ns=p.refine_samples, half_range=p.refine_range)
             det = replace(det, corners=refined)

@@ -28,6 +28,7 @@ from ..device import resolve_device
 from ..families import TagFamily
 from ..geometry import PinholeCamera, se3_inverse, undistort_pixels
 from ..pose import poses_from_detections
+from ..utils.profiling import span
 from .ba import BAState, _take, ba_add_frame, ba_init, ba_optimize
 from .graph import GraphState, average_distance_to_nodes, estimate_pose_average, init_graph, update_graph
 from .localize import joint_camera_pose, pose_observability
@@ -93,21 +94,22 @@ def apply_taggraph(tg: TagGraphState, ba: BAState, due: torch.Tensor, iters: int
     hold = ba.lm_active & ~movable
     if not bool(due & movable.any() & (ba.anchor >= 0)):
         return ba
-    Ml, Kf = ba.n_landmarks, ba.n_keyframes
-    eye4 = torch.eye(4, dtype=ba.lm_pose.dtype, device=ba.lm_pose.device)
-    new_lm, moved = taggraph_solve(
-        tg, ba.lm_pose, ba.lm_active, ba.anchor, hold=hold, iters=iters,
-        max_edges=min(128, max(16, (tg.capacity * tg.capacity) // 4)))
-    delta_lm = torch.where((moved & movable)[:, None, None], new_lm @ se3_inverse(ba.lm_pose), eye4)
-    # Dominant moved tag per keyframe by live observation count.
-    onehot_kf = torch.nn.functional.one_hot(ba.obs_kf.long(), Kf).to(torch.float32)
-    onehot_lm = torch.nn.functional.one_hot(ba.obs_lm.long(), Ml).to(torch.float32)
-    counts = onehot_kf.T @ (onehot_lm * ba.obs_ok.to(torch.float32)[:, None])  # (Kf, Ml)
-    cm = counts * movable.to(torch.float32)[None, :]
-    m_star = torch.argmax(cm, dim=1)
-    has = (cm.max(dim=1).values > 0) & ba.kf_active & moved
-    kf_delta = torch.where(has[:, None, None], delta_lm[m_star], eye4)
-    return replace(ba, lm_pose=new_lm, kf_pose=kf_delta @ ba.kf_pose)
+    with span("slam.taggraph.solve"):
+        Ml, Kf = ba.n_landmarks, ba.n_keyframes
+        eye4 = torch.eye(4, dtype=ba.lm_pose.dtype, device=ba.lm_pose.device)
+        new_lm, moved = taggraph_solve(
+            tg, ba.lm_pose, ba.lm_active, ba.anchor, hold=hold, iters=iters,
+            max_edges=min(128, max(16, (tg.capacity * tg.capacity) // 4)))
+        delta_lm = torch.where((moved & movable)[:, None, None], new_lm @ se3_inverse(ba.lm_pose), eye4)
+        # Dominant moved tag per keyframe by live observation count.
+        onehot_kf = torch.nn.functional.one_hot(ba.obs_kf.long(), Kf).to(torch.float32)
+        onehot_lm = torch.nn.functional.one_hot(ba.obs_lm.long(), Ml).to(torch.float32)
+        counts = onehot_kf.T @ (onehot_lm * ba.obs_ok.to(torch.float32)[:, None])  # (Kf, Ml)
+        cm = counts * movable.to(torch.float32)[None, :]
+        m_star = torch.argmax(cm, dim=1)
+        has = (cm.max(dim=1).values > 0) & ba.kf_active & moved
+        kf_delta = torch.where(has[:, None, None], delta_lm[m_star], eye4)
+        return replace(ba, lm_pose=new_lm, kf_pose=kf_delta @ ba.kf_pose)
 
 
 def build_slam_step(
@@ -228,9 +230,10 @@ def build_slam_step(
         estimator's pose, and under "ba" the keyframe policy and insertion
         and the camera pose graph. Nothing here reads a value back to the
         host beyond what ``update_graph`` does."""
-        graph = update_graph(graph, ids, T, ok & seed if gate_seeding else ok)
-        avg_T, avg_valid, graph = estimate_pose_average(
-            graph, project_rotation=estimator != "reference_chain")
+        with span("slam.scan.graph"):
+            graph = update_graph(graph, ids, T, ok & seed if gate_seeding else ok)
+            avg_T, avg_valid, graph = estimate_pose_average(
+                graph, project_rotation=estimator != "reference_chain")
         rms = torch.zeros((), dtype=torch.float32, device=dev)
         pose = avg_T
         # Landmarks the reported pose is solved with: the chain estimators
@@ -280,17 +283,18 @@ def build_slam_step(
             # slots, when it can seed a tag the map lacks, or on the kf_every
             # cadence (of the persistent frame counter), and only if its own
             # pose is reliably anchored (has_cand).
-            seed_new = ok & seed & valid_id & ~active_d
-            adopt = seed_new.any() | (ba.kf_active.sum() < ba.n_keyframes)
-            if kf_every > 0:
-                adopt = adopt | (ba.frame_count % kf_every == 0)
-            is_kf = has_cand & adopt
-            kf_slot = ba.kf_ptr % ba.n_keyframes  # the slot the keyframe lands in
-            ba_kf = ba_add_frame(ba, ids, corners, ok, T_init, T, seed_ok=ok & seed)
-            if ba_per_frame:
-                ba_kf = ba_optimize(ba_kf, K, tag_size, iters=ba_iters_per_frame)
-            ba = _where_state(is_kf, ba_kf, ba)
-            ba = replace(ba, frame_count=ba.frame_count + 1)
+            with span("slam.scan.keyframe"):
+                seed_new = ok & seed & valid_id & ~active_d
+                adopt = seed_new.any() | (ba.kf_active.sum() < ba.n_keyframes)
+                if kf_every > 0:
+                    adopt = adopt | (ba.frame_count % kf_every == 0)
+                is_kf = has_cand & adopt
+                kf_slot = ba.kf_ptr % ba.n_keyframes  # the slot the keyframe lands in
+                ba_kf = ba_add_frame(ba, ids, corners, ok, T_init, T, seed_ok=ok & seed)
+                if ba_per_frame:
+                    ba_kf = ba_optimize(ba_kf, K, tag_size, iters=ba_iters_per_frame)
+                ba = _where_state(is_kf, ba_kf, ba)
+                ba = replace(ba, frame_count=ba.frame_count + 1)
 
             use = seen & ba.lm_active
             loc_used = use
@@ -307,24 +311,25 @@ def build_slam_step(
                 # policy would skip the frame, so the loop edge has a node to
                 # attach to. Loop and odometry measurements come only from
                 # branch-reliable PnP (ok & seed).
-                maybe_loop = (seen & (
-                    ((pgo_s.lm_node >= 0) & ((pgo_s.frame - pgo_s.lm_frame) > pgo_loop_gap))
-                    | loop_window_open(pgo_s))).any()
-                is_node = is_kf | (maybe_loop & use.any())
-                pgo_s, delta, closed = pgo_track_frame(
-                    pgo_s, pose_w, use.any(), ids, T, ok & seed, is_node,
-                    torch.where(is_kf, kf_slot, ba.n_keyframes),
-                    loop_gap=pgo_loop_gap, solve=ba_per_frame, opt_iters=pgo_opt_iters)
-                if ba_per_frame:
-                    # Without a solve, delta is the exact identity and the
-                    # products below return their inputs.
-                    ba = replace(
-                        ba,
-                        lm_pose=apply_node_deltas(delta, pgo_s.lm_ref, ba.lm_pose),
-                        kf_pose=apply_node_deltas(delta, pgo_s.kf_node, ba.kf_pose),
-                    )
-                    last_node = (pgo_s.node_ptr - 1) % pgo_s.n_nodes_capacity
-                    pose_w = torch.where(closed, _take(delta, last_node) @ pose_w, pose_w)
+                with span("slam.scan.pgo"):
+                    maybe_loop = (seen & (
+                        ((pgo_s.lm_node >= 0) & ((pgo_s.frame - pgo_s.lm_frame) > pgo_loop_gap))
+                        | loop_window_open(pgo_s))).any()
+                    is_node = is_kf | (maybe_loop & use.any())
+                    pgo_s, delta, closed = pgo_track_frame(
+                        pgo_s, pose_w, use.any(), ids, T, ok & seed, is_node,
+                        torch.where(is_kf, kf_slot, ba.n_keyframes),
+                        loop_gap=pgo_loop_gap, solve=ba_per_frame, opt_iters=pgo_opt_iters)
+                    if ba_per_frame:
+                        # Without a solve, delta is the exact identity and the
+                        # products below return their inputs.
+                        ba = replace(
+                            ba,
+                            lm_pose=apply_node_deltas(delta, pgo_s.lm_ref, ba.lm_pose),
+                            kf_pose=apply_node_deltas(delta, pgo_s.kf_node, ba.kf_pose),
+                        )
+                        last_node = (pgo_s.node_ptr - 1) % pgo_s.n_nodes_capacity
+                        pose_w = torch.where(closed, _take(delta, last_node) @ pose_w, pose_w)
 
             # Report in the graph's coordinate frame (lowest id ever seen);
             # until that tag is an active landmark, fall back to the chain
@@ -380,15 +385,22 @@ def build_slam_step(
         """Detection, undistortion and PnP of (N, H, W[, 3]) frames. Every
         output is per frame, so N may hold several sequences' chunks.
         Returns (det, T, ok, seed, T_alt)."""
-        det = detect(torch.as_tensor(frames, device=dev))
-        if dist is not None:
-            det = replace(det, corners=undistort_pixels(det.corners, K, dist))
-        T_all, ok_all, _rms, seed_all, T_alt_all = poses_from_detections(
-            det, K, tag_size, iters=pnp_iters)
-        return det, T_all, ok_all, seed_all, T_alt_all
+        with span("slam.front"):
+            with span("slam.detect"):
+                det = detect(torch.as_tensor(frames, device=dev))
+            with span("slam.pnp"):
+                if dist is not None:
+                    det = replace(det, corners=undistort_pixels(det.corners, K, dist))
+                T_all, ok_all, _rms, seed_all, T_alt_all = poses_from_detections(
+                    det, K, tag_size, iters=pnp_iters)
+            return det, T_all, ok_all, seed_all, T_alt_all
 
     def back(state, front_out):
         """The chunk's back end from ``front``'s outputs for its B frames."""
+        with span("slam.back"):
+            return chunk_back(state, front_out)
+
+    def chunk_back(state, front_out):
         pgo_s = tg = None
         if use_pgo:
             graph, ba, pgo_s, tg = state
@@ -399,22 +411,27 @@ def build_slam_step(
         det, T_all, ok_all, seed_all, T_alt_all = front_out
         ids = det.ids
         B = ids.shape[0]
-        pre = pre_localize(ba, ids, ok_all, seed_all, det.corners, T_all, T_alt_all) if chunk_ba else None
+        pre = None
+        if chunk_ba:
+            with span("slam.pre_localize"):
+                pre = pre_localize(ba, ids, ok_all, seed_all, det.corners, T_all, T_alt_all)
 
-        outs = []
-        for b in range(B):
-            graph, ba, pgo_s, o = per_frame(
-                graph, ba, pgo_s, ids[b], T_all[b], T_alt_all[b], ok_all[b], seed_all[b],
-                det.corners[b], None if pre is None else tuple(x[b] for x in pre))
-            outs.append(o)
-        o = {k: torch.stack([x[k] for x in outs]) for k in outs[0]}
+        with span("slam.scan"):
+            outs = []
+            for b in range(B):
+                graph, ba, pgo_s, o = per_frame(
+                    graph, ba, pgo_s, ids[b], T_all[b], T_alt_all[b], ok_all[b], seed_all[b],
+                    det.corners[b], None if pre is None else tuple(x[b] for x in pre))
+                outs.append(o)
+            o = {k: torch.stack([x[k] for x in outs]) for k in outs[0]}
         poses, rms, loc_used = o["poses"], o["reproj_rms"], o["loc_used"]
 
         if chunk_ba:
             # Chunk-level mapping pass with the per-frame schedule's budget.
             chunk_iters = ba_chunk_iters if ba_chunk_iters is not None else min(B * ba_iters_per_frame, 16)
             if chunk_iters > 0:
-                ba = ba_optimize(ba, K, tag_size, iters=chunk_iters)
+                with span("slam.ba"):
+                    ba = ba_optimize(ba, K, tag_size, iters=chunk_iters)
             if use_pgo:
                 # The camera pose-graph solve hoisted to the chunk boundary:
                 # every loop edge minted during the chunk in one solve, then
@@ -423,34 +440,39 @@ def build_slam_step(
                 # chunk decides, and the skipped branch leaves both states.
                 pending = pgo_s.n_loops > pgo_s.n_solved
                 if bool(pending):
-                    pgo_s, delta, _closed = pgo_solve(pgo_s, opt_iters=pgo_opt_iters)
-                    ba = replace(ba, kf_pose=apply_node_deltas(delta, pgo_s.kf_node, ba.kf_pose))
+                    with span("slam.pgo_solve"):
+                        pgo_s, delta, _closed = pgo_solve(pgo_s, opt_iters=pgo_opt_iters)
+                        ba = replace(ba, kf_pose=apply_node_deltas(delta, pgo_s.kf_node, ba.kf_pose))
                 # The landmark pose graph accumulates every chunk (it is the
                 # evidence) and refines the map when due.
-                tg = taggraph_accumulate(tg, ids, T_all, ok_all & seed_all)
-                ba = apply_taggraph(tg, ba, pending | taggraph_due(ba, B), taggraph_iters)
-            poses, rms, use_full, keep = reloc(
-                ba, ids, ok_all, det.corners, poses, o["coord_id"], o["valid"], rms)
+                with span("slam.taggraph"):
+                    tg = taggraph_accumulate(tg, ids, T_all, ok_all & seed_all)
+                    ba = apply_taggraph(tg, ba, pending | taggraph_due(ba, B), taggraph_iters)
+            with span("slam.reloc"):
+                poses, rms, use_full, keep = reloc(
+                    ba, ids, ok_all, det.corners, poses, o["coord_id"], o["valid"], rms)
             # Observability over the landmark set the reported pose was solved with.
             loc_obs = torch.where(keep[:, None], use_full, loc_used)
         else:
             if use_pgo:
                 # Frame schedule: the camera pose-graph solve already ran in
                 # the loop; fold the chunk into the landmark pose graph.
-                tg = taggraph_accumulate(tg, ids, T_all, ok_all & seed_all)
-                ba = apply_taggraph(tg, ba, taggraph_due(ba, B), taggraph_iters)
+                with span("slam.taggraph"):
+                    tg = taggraph_accumulate(tg, ids, T_all, ok_all & seed_all)
+                    ba = apply_taggraph(tg, ba, taggraph_due(ba, B), taggraph_iters)
             loc_obs = loc_used
 
         # Pose observability against the final map: BA's landmarks, else the
         # chaining graph (whose world frame is the coordinate frame).
-        world_f, active_f = (ba.lm_pose, ba.lm_active) if use_ba else (graph.world, graph.present)
-        Mf = world_f.shape[0]
         coord = o["coord_id"]
-        c_slot = coord.clamp(0, Mf - 1).long()
-        frame_ok = (coord >= 0) & (coord < Mf) & active_f[c_slot]
-        T_wa = torch.where(frame_ok[:, None, None], world_f[c_slot], eye4)
-        s = pose_observability(world_f, loc_obs, K, tag_size, T_wa @ poses)
-        pose_obs = torch.where(o["valid"] & frame_ok & loc_obs.any(-1), s, 0.0)
+        with span("slam.observability"):
+            world_f, active_f = (ba.lm_pose, ba.lm_active) if use_ba else (graph.world, graph.present)
+            Mf = world_f.shape[0]
+            c_slot = coord.clamp(0, Mf - 1).long()
+            frame_ok = (coord >= 0) & (coord < Mf) & active_f[c_slot]
+            T_wa = torch.where(frame_ok[:, None, None], world_f[c_slot], eye4)
+            s = pose_observability(world_f, loc_obs, K, tag_size, T_wa @ poses)
+            pose_obs = torch.where(o["valid"] & frame_ok & loc_obs.any(-1), s, 0.0)
 
         outs = SlamOutputs(
             poses=poses,
@@ -476,7 +498,8 @@ def build_slam_step(
         return ((graph, ba) if use_ba else graph), outs
 
     def slam_step(state, frames):
-        return back(state, front(frames))
+        with span("slam.step"):
+            return back(state, front(frames))
 
     slam_step._halves = (front, back)
 

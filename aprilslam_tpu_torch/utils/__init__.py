@@ -5,12 +5,12 @@ cache is played by the CCL kernel's build cache under ``build/``."""
 
 from ..device import resolve_device
 from .checkpoint import CheckpointManager
-from .profiling import StageTimer, FpsCounter, trace
+from .profiling import SpanRecorder, span, trace
 
 __all__ = [
     "CheckpointManager",
-    "StageTimer",
-    "FpsCounter",
+    "SpanRecorder",
+    "span",
     "trace",
     "resolve_device",
 ]

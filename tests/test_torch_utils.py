@@ -1,17 +1,16 @@
-"""The port's runtime helpers: checkpoint/resume of every SLAM state form,
-the stage timer, the FPS counter and the profiler trace."""
+"""The port's runtime helpers: checkpoint/resume of every SLAM state form
+and the profiler trace (the spans: tests/test_torch_spans.py)."""
 
 import dataclasses
 import json
 import os
-import time
 
 import pytest
 import torch
 
 from aprilslam_tpu_torch.geometry import PinholeCamera
 from aprilslam_tpu_torch.slam import build_slam_step
-from aprilslam_tpu_torch.utils import CheckpointManager, FpsCounter, StageTimer, resolve_device, trace
+from aprilslam_tpu_torch.utils import CheckpointManager, resolve_device, trace
 
 FORMS = {
     "graph": dict(estimator="joint"),
@@ -101,25 +100,6 @@ def test_checkpoint_retention_steps_and_errors(tmp_path):
     bigger = (dataclasses.replace(state[0], weight=torch.ones(17)), state[1])
     with pytest.raises(ValueError, match="weight"):
         mgr.restore(bigger)
-
-
-def test_stage_timer_and_fps_counter():
-    timer = StageTimer()
-    for _ in range(3):
-        with timer.stage("detect", sync=torch.zeros(1)):
-            time.sleep(0.002)
-    with timer.stage("slam"):
-        pass
-    assert timer.counts == {"detect": 3, "slam": 1}
-    assert timer.totals["detect"] >= 0.006
-    rep = timer.report().splitlines()
-    assert rep[0].startswith("detect") and "x3" in rep[0]
-
-    fps = FpsCounter(window=4)
-    assert fps.tick(2) is None
-    time.sleep(0.01)
-    rate = fps.tick(2)
-    assert rate is not None and 0 < rate < 4 / 0.01 and fps.fps == rate
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

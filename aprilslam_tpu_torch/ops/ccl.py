@@ -16,21 +16,11 @@ package, and rebuilt when the source changes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ccl.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aprilslam_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC"]
+from .nvcc import KernelLibrary
 
 # Kernel launches through the wrapper (one per labelled batch).
 ccl_launches = 0
@@ -39,20 +29,15 @@ ccl_launches = 0
 # batch is a size_t, so nothing else bounds B.
 MAX_FRAMES = 65535
 
-_lib = None
-# The service's handler threads may make the first call together: one
-# builds and loads the library, the others wait for it.
-_lib_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.aprilslam_ccl.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.aprilslam_ccl.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CCL kernel cannot be built")
+_library = KernelLibrary("ccl.cu", _bind)
+SOURCE = _library.source
 
 
 def build_ccl(verbose: bool = False) -> tuple[Path, float]:
@@ -60,41 +45,7 @@ def build_ccl(verbose: bool = False) -> tuple[Path, float]:
 
     Returns (shared library path, seconds spent compiling; 0.0 if cached).
     Raises when nvcc is missing or the compile fails."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"ccl_{digest}.so"
-    if lib_path.exists():
-        return lib_path, 0.0
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path, seconds
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        with _lib_lock:
-            if _lib is None:
-                lib_path, _ = build_ccl()
-                lib = ctypes.CDLL(str(lib_path))
-                lib.aprilslam_ccl.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                lib.aprilslam_ccl.restype = ctypes.c_int
-                _lib = lib
-    return _lib
+    return _library.build(verbose)
 
 
 def connected_components(trinary: torch.Tensor) -> torch.Tensor:
@@ -117,7 +68,7 @@ def connected_components(trinary: torch.Tensor) -> torch.Tensor:
         raise ValueError("frames of 2**31 - 1 pixels or more do not fit int32 labels")
     if B > MAX_FRAMES:
         raise ValueError(f"the kernel's grid takes at most {MAX_FRAMES} frames per call, got {B}")
-    lib = _library()
+    lib = _library.load()
     labels = torch.empty((B, H, W), dtype=torch.int32, device=trinary.device)
     with torch.cuda.device(trinary.device):
         stream = torch.cuda.current_stream().cuda_stream

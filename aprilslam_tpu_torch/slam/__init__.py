@@ -4,6 +4,9 @@ from .graph import (
     update_graph,
     estimate_pose_average,
     average_distance_to_nodes,
+    GraphScan,
+    scan_chain_graph,
+    scan_chain_graph_plain,
     NO_ANCHOR,
 )
 from .localize import joint_camera_pose, pose_observability
@@ -26,6 +29,9 @@ __all__ = [
     "update_graph",
     "estimate_pose_average",
     "average_distance_to_nodes",
+    "GraphScan",
+    "scan_chain_graph",
+    "scan_chain_graph_plain",
     "NO_ANCHOR",
     "joint_camera_pose",
     "pose_observability",

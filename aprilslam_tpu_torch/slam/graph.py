@@ -8,6 +8,10 @@ every stored world into the new anchor's frame.
 
 ``T`` = camera->tag (PnP output), ``local`` = inv(T), ``world`` maps a tag
 frame to the anchor ("world") frame; ``world @ local`` is the camera pose.
+
+``scan_chain_graph`` runs a whole chunk of frames: on the card one launch of
+the kernel in ``csrc/chain_graph.cu``, on the CPU the per-frame loop of
+``update_graph`` and ``estimate_pose_average``, its plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..geometry import project_to_so3, se3_inverse
+from ..ops import chain_graph
 
 NO_ANCHOR = 2**30
 
@@ -178,3 +183,81 @@ def average_distance_to_nodes(state: GraphState) -> torch.Tensor:
     d = torch.linalg.norm(state.local[:, :3, 3], dim=-1)
     n = state.present.sum()
     return torch.where(state.present, d, 0.0).sum() / torch.clamp(n, min=1)
+
+
+@dataclass(frozen=True)
+class GraphScan:
+    """Each frame's results of :func:`scan_chain_graph` over a chunk of B
+    frames: the pose average and the graph after the frame."""
+
+    avg_T: torch.Tensor  # (B, 4, 4) estimate_pose_average's T_avg
+    valid: torch.Tensor  # (B,) bool
+    visible: torch.Tensor  # (B, M) bool
+    present: torch.Tensor  # (B, M) bool
+    weight: torch.Tensor  # (B, M)
+    local: torch.Tensor  # (B, M, 4, 4)
+    world: torch.Tensor  # (B, M, 4, 4)
+    coordinate_id: torch.Tensor  # (B,) int32
+    n_visible: torch.Tensor  # (B,) int64
+    n_nodes: torch.Tensor  # (B,) int64
+    avg_node_distance: torch.Tensor  # (B,)
+
+
+def scan_chain_graph(
+    state: GraphState,
+    ids: torch.Tensor,  # (B, D) int32, each row as update_graph takes it
+    T_cam_tag: torch.Tensor,  # (B, D, 4, 4)
+    ok: torch.Tensor,  # (B, D) bool
+    project_rotation: bool = True,
+) -> tuple[GraphState, GraphScan]:
+    """``update_graph`` then ``estimate_pose_average`` for each frame of a
+    chunk, in order. Returns the state after the last frame (its
+    ``estimated_pose`` that frame's average) and every frame's results.
+
+    A CUDA state takes the kernel (one launch, no read back to the host; it
+    raises on what the kernel does not take), a CPU state
+    :func:`scan_chain_graph_plain`."""
+    if ids.dim() != 2 or ids.shape[0] < 1 or tuple(ok.shape) != tuple(ids.shape) \
+            or tuple(T_cam_tag.shape) != (*ids.shape, 4, 4):
+        raise ValueError(f"a chunk takes ids and ok (B, D) with B >= 1 and T_cam_tag (B, D, 4, 4), got "
+                         f"{tuple(ids.shape)}, {tuple(ok.shape)}, {tuple(T_cam_tag.shape)}")
+    if state.local.device.type == "cpu":
+        return scan_chain_graph_plain(state, ids, T_cam_tag, ok, project_rotation)
+    r = chain_graph.chain_graph_scan(
+        state.local, state.world, state.weight, state.present, state.updated, state.reference,
+        state.coordinate_id, state.has_estimate, ids.contiguous(), T_cam_tag.contiguous(), ok.contiguous())
+    T_avg, valid = r["avg_T"], r["valid"]
+    if project_rotation:
+        T_avg = torch.cat([torch.cat([project_to_so3(T_avg[:, :3, :3]), T_avg[:, :3, 3:]], dim=2),
+                           T_avg[:, 3:]], dim=1)
+    T_avg = torch.where(valid[:, None, None], T_avg, torch.eye(4, dtype=T_avg.dtype, device=T_avg.device))
+    scan = GraphScan(avg_T=T_avg, **{k: r[k] for k in (
+        "valid", "visible", "present", "weight", "local", "world", "coordinate_id", "n_visible", "n_nodes",
+        "avg_node_distance")})
+    last = GraphState(
+        local=scan.local[-1], world=scan.world[-1], weight=scan.weight[-1], present=scan.present[-1],
+        visible=scan.visible[-1], updated=r["updated"], reference=r["reference"],
+        coordinate_id=scan.coordinate_id[-1], estimated_pose=T_avg[-1], has_estimate=r["has_estimate"])
+    return last, scan
+
+
+def scan_chain_graph_plain(state: GraphState, ids, T_cam_tag, ok, project_rotation: bool = True):
+    """The kernel's plain version: the per-frame loop it replaces."""
+    frames = []
+    for b in range(ids.shape[0]):
+        state = update_graph(state, ids[b], T_cam_tag[b], ok[b])
+        T_avg, valid, state = estimate_pose_average(state, project_rotation=project_rotation)
+        frames.append((T_avg, valid, state, average_distance_to_nodes(state)))
+    return state, GraphScan(
+        avg_T=torch.stack([f[0] for f in frames]),
+        valid=torch.stack([f[1] for f in frames]),
+        visible=torch.stack([f[2].visible for f in frames]),
+        present=torch.stack([f[2].present for f in frames]),
+        weight=torch.stack([f[2].weight for f in frames]),
+        local=torch.stack([f[2].local for f in frames]),
+        world=torch.stack([f[2].world for f in frames]),
+        coordinate_id=torch.stack([f[2].coordinate_id for f in frames]),
+        n_visible=torch.stack([f[2].visible.sum() for f in frames]),
+        n_nodes=torch.stack([f[2].present.sum() for f in frames]),
+        avg_node_distance=torch.stack([f[3] for f in frames]),
+    )

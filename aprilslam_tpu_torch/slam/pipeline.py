@@ -1,14 +1,16 @@
 """The full SLAM step: frames -> detections -> poses -> graph -> estimate
 (port of ``aprilslam_tpu/slam/pipeline.py``).
 
-Detection + PnP run batched over the whole frame chunk; a loop over the
-chunk's frames does the sequential graph, keyframe and pose-graph
-bookkeeping. Under ``estimator="ba"`` with ``ba_schedule="chunk"`` a batched
-dual-init localization against the previous chunk's map seeds each frame,
-one LM-BA solve refines the map at the chunk boundary, and every frame is
-re-localized against the final map; under ``ba_schedule="frame"`` the
-localization and the BA solve run inside the loop. Pose observability is
-evaluated against the final map, batched over the chunk.
+Detection + PnP run batched over the whole frame chunk; the chaining
+graph's updates run over the chunk in one call (``scan_chain_graph``, one
+kernel launch on the card); a loop over the chunk's frames does the
+sequential keyframe and pose-graph bookkeeping. Under ``estimator="ba"``
+with ``ba_schedule="chunk"`` a batched dual-init localization against the
+previous chunk's map seeds each frame, one LM-BA solve refines the map at
+the chunk boundary, and every frame is re-localized against the final map;
+under ``ba_schedule="frame"`` the localization and the BA solve run inside
+the loop. Pose observability is evaluated against the final map, batched
+over the chunk.
 
 The step is its back end applied to its front end (detection and PnP),
 which works frame by frame: ``parallel/sequences.py`` runs the front end
@@ -30,7 +32,7 @@ from ..geometry import PinholeCamera, se3_inverse, undistort_pixels
 from ..pose import poses_from_detections
 from ..utils.profiling import span
 from .ba import BAState, _take, ba_add_frame, ba_init, ba_optimize
-from .graph import GraphState, average_distance_to_nodes, estimate_pose_average, init_graph, update_graph
+from .graph import GraphScan, GraphState, init_graph, scan_chain_graph
 from .localize import joint_camera_pose, pose_observability
 from .loop import apply_node_deltas, loop_window_open, pgo_init, pgo_solve, pgo_track_frame
 from .taggraph import TagGraphState, taggraph_accumulate, taggraph_init, taggraph_solve, taggraph_support
@@ -225,27 +227,23 @@ def build_slam_step(
             use.any(-1),
         )
 
-    def per_frame(graph: GraphState, ba, pgo_s, ids, T, T_alt, ok, seed, corners, pre):
-        """Sequential bookkeeping for one frame: chaining graph update, the
-        estimator's pose, and under "ba" the keyframe policy and insertion
-        and the camera pose graph. Nothing here reads a value back to the
-        host beyond what ``update_graph`` does."""
-        with span("slam.scan.graph"):
-            graph = update_graph(graph, ids, T, ok & seed if gate_seeding else ok)
-            avg_T, avg_valid, graph = estimate_pose_average(
-                graph, project_rotation=estimator != "reference_chain")
+    def per_frame(g: GraphScan, b: int, ba, pgo_s, ids, T, T_alt, ok, seed, corners, pre):
+        """Sequential bookkeeping for frame ``b`` of the chunk after the
+        chaining graph's scan ``g``: the estimator's pose, and under "ba" the
+        keyframe policy and insertion and the camera pose graph. Nothing here
+        reads a value back to the host."""
+        avg_T, avg_valid = g.avg_T[b], g.valid[b]
         rms = torch.zeros((), dtype=torch.float32, device=dev)
         pose = avg_T
         # Landmarks the reported pose is solved with: the chain estimators
         # average over the visible nodes.
-        loc_used = graph.visible
+        loc_used = g.visible[b]
         if estimator == "joint":
-            corn_m, seen = scatter_frame(ids, ok, corners, graph.capacity)
-            loc_used = seen & graph.present
-            T_wc, rms = joint_camera_pose(graph.world, loc_used, corn_m, K, tag_size, avg_T,
+            corn_m, seen = scatter_frame(ids, ok, corners, g.present.shape[1])
+            loc_used = seen & g.present[b]
+            T_wc, rms = joint_camera_pose(g.world[b], loc_used, corn_m, K, tag_size, avg_T,
                                           iters=joint_iters)
             pose = torch.where(avg_valid, T_wc, avg_T)
-            graph = replace(graph, estimated_pose=pose)
         elif use_ba:
             # The camera pose used for keyframe insertion is derived from a
             # branch-reliable detection of an active landmark (or the anchor
@@ -334,30 +332,20 @@ def build_slam_step(
             # Report in the graph's coordinate frame (lowest id ever seen);
             # until that tag is an active landmark, fall back to the chain
             # average, which always lives there.
-            coord = graph.coordinate_id
+            coord = g.coordinate_id[b]
             c_slot = coord.clamp(0, Ml - 1)
             frame_ok = (coord >= 0) & (coord < Ml) & _take(ba.lm_active, c_slot)
             T_wa = torch.where(frame_ok, _take(ba.lm_pose, c_slot), eye4)
             ba_valid = use.any() & (cand_loc.any() | avg_valid) & frame_ok
             pose = torch.where(ba_valid, se3_inverse(T_wa) @ pose_w, avg_T)
-            graph = replace(graph, estimated_pose=pose)
 
         out = dict(
             poses=pose,
-            valid=avg_valid,
             reproj_rms=rms,
             loc_used=loc_used,
-            n_visible=graph.visible.sum(),
-            n_nodes=graph.present.sum(),
-            avg_node_distance=average_distance_to_nodes(graph),
-            coord_id=graph.coordinate_id,
             loop_closures=(pgo_s.n_loops if use_pgo else torch.zeros((), dtype=torch.int32, device=dev)),
-            node_visible=graph.visible,
-            node_weight=graph.weight,
-            node_local=graph.local,
-            node_world=graph.world,
         )
-        return graph, ba, pgo_s, out
+        return ba, pgo_s, out
 
     def taggraph_due(ba: BAState, B: int) -> torch.Tensor:
         if taggraph_every > 1:
@@ -417,14 +405,22 @@ def build_slam_step(
                 pre = pre_localize(ba, ids, ok_all, seed_all, det.corners, T_all, T_alt_all)
 
         with span("slam.scan"):
+            # The chaining graph reads only the front end's outputs, so the
+            # whole chunk's updates run first, in one call.
+            with span("slam.scan.graph"):
+                graph, g = scan_chain_graph(graph, ids, T_all, ok_all & seed_all if gate_seeding else ok_all,
+                                            project_rotation=estimator != "reference_chain")
             outs = []
             for b in range(B):
-                graph, ba, pgo_s, o = per_frame(
-                    graph, ba, pgo_s, ids[b], T_all[b], T_alt_all[b], ok_all[b], seed_all[b],
+                ba, pgo_s, o = per_frame(
+                    g, b, ba, pgo_s, ids[b], T_all[b], T_alt_all[b], ok_all[b], seed_all[b],
                     det.corners[b], None if pre is None else tuple(x[b] for x in pre))
                 outs.append(o)
             o = {k: torch.stack([x[k] for x in outs]) for k in outs[0]}
         poses, rms, loc_used = o["poses"], o["reproj_rms"], o["loc_used"]
+        if estimator in ("joint", "ba"):
+            # The state carries the last frame's reported pose.
+            graph = replace(graph, estimated_pose=poses[-1])
 
         if chunk_ba:
             # Chunk-level mapping pass with the per-frame schedule's budget.
@@ -450,7 +446,7 @@ def build_slam_step(
                     ba = apply_taggraph(tg, ba, pending | taggraph_due(ba, B), taggraph_iters)
             with span("slam.reloc"):
                 poses, rms, use_full, keep = reloc(
-                    ba, ids, ok_all, det.corners, poses, o["coord_id"], o["valid"], rms)
+                    ba, ids, ok_all, det.corners, poses, g.coordinate_id, g.valid, rms)
             # Observability over the landmark set the reported pose was solved with.
             loc_obs = torch.where(keep[:, None], use_full, loc_used)
         else:
@@ -464,7 +460,7 @@ def build_slam_step(
 
         # Pose observability against the final map: BA's landmarks, else the
         # chaining graph (whose world frame is the coordinate frame).
-        coord = o["coord_id"]
+        coord = g.coordinate_id
         with span("slam.observability"):
             world_f, active_f = (ba.lm_pose, ba.lm_active) if use_ba else (graph.world, graph.present)
             Mf = world_f.shape[0]
@@ -472,23 +468,23 @@ def build_slam_step(
             frame_ok = (coord >= 0) & (coord < Mf) & active_f[c_slot]
             T_wa = torch.where(frame_ok[:, None, None], world_f[c_slot], eye4)
             s = pose_observability(world_f, loc_obs, K, tag_size, T_wa @ poses)
-            pose_obs = torch.where(o["valid"] & frame_ok & loc_obs.any(-1), s, 0.0)
+            pose_obs = torch.where(g.valid & frame_ok & loc_obs.any(-1), s, 0.0)
 
         outs = SlamOutputs(
             poses=poses,
-            valid=o["valid"],
+            valid=g.valid,
             reproj_rms=rms,
             pose_obs=pose_obs,
             loc_used=loc_used,
-            n_visible=o["n_visible"],
-            n_nodes=o["n_nodes"],
-            avg_node_distance=o["avg_node_distance"],
+            n_visible=g.n_visible,
+            n_nodes=g.n_nodes,
+            avg_node_distance=g.avg_node_distance,
             coord_id=coord,
             loop_closures=o["loop_closures"],
-            node_visible=o["node_visible"],
-            node_weight=o["node_weight"],
-            node_local=o["node_local"],
-            node_world=o["node_world"],
+            node_visible=g.visible,
+            node_weight=g.weight,
+            node_local=g.local,
+            node_world=g.world,
             det_ids=ids,
             det_corners=det.corners,
             det_ok=ok_all,

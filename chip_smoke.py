@@ -4,7 +4,8 @@
 
 Phases (any failed check exits non-zero):
 1. card: name and power limit; fails without a CUDA device;
-2. build the CCL kernel (csrc/ccl.cu) with nvcc for sm_90a;
+2. build the CCL kernel (csrc/ccl.cu) and the chain-graph kernel
+   (csrc/chain_graph.cu) with nvcc for sm_90a;
 3. the kernel against its plain PyTorch version and a scipy oracle, bit for
    bit, on block-random, uniform, odd-sized, serpentine and rendered
    main-path inputs and on stress inputs that cross tile borders
@@ -12,18 +13,26 @@ Phases (any failed check exits non-zero):
    the kernel timed with CUDA events on four inputs (back-to-back eager
    calls, as the main path makes them, and device time from a replayed CUDA
    graph), the plain version on the main-path one, and each of the kernel's
-   launches with torch.profiler;
+   launches with torch.profiler; then the chain-graph kernel against its
+   plain version (on the card and on the CPU: integers equal, floats within
+   1e-5 of each tensor's largest magnitude) on random chunks at the closure
+   cell's shape (B 8, D 16, M 16) and at the step's defaults (D 32, M 64),
+   each of two chunks in a row, the rotation projected and not, and timed
+   at both shapes beside an empty launch and the plain version;
 4. the main path: the bench's headline poses (``bench_torch.headline_poses``)
    of the default 5-tag scene rendered at 1000x1000 on the card as uint8,
    the headline detector and SLAM step in chunks of 8 through
    ``SlamSystem``; ATE against the analytic ground truth, the valid rate,
-   the kernel's launch count and that every output lives on the card;
+   both kernels' launch counts (one each per chunk) and that every output
+   lives on the card;
 5. BASELINE config 2 through ``bench_torch``'s pgo leg (``pgo_frames``,
    ``pgo_run``): the randomized scene, the two-lap loop of 96 frames at
    1000x1000, the loop-closure back end off and then on; per side an
    accuracy pass, two timed passes (best of two), ATE, valid rate, loop
    edges, the kernel's launches, and one step's host syncs, kernel launches
-   and busy share;
+   and busy share; then the pgo-on step (the closure cell's) on the same
+   chunks with every chunk's chain-graph input recorded: one launch per
+   chunk, and each recorded chunk through the kernel and the plain version;
 6. every other estimator and schedule for one chunk of the main-path frames
    (``reference_chain``, ``chain_avg``, ``joint``, the frame schedule, zero
    distortion coefficients against none), and the sparse BA coupling
@@ -288,6 +297,109 @@ def time_ccl_map(ccl_timing: dict, name: str, t: torch.Tensor, card: str) -> Non
     ccl_timing["bound_ms"][name] = t.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
     log(f"ccl timing {name}: kernel {ccl_timing['ms'][name]:.4f} ms ({ccl_timing['device_ms'][name]:.4f} ms on the "
         f"card), bound {ccl_timing['bound_ms'][name]:.5f} ms (bytes) [{card}]")
+
+
+def chain_graph_cases():
+    """``tests/chain_graph_cases.py``: the chunks and the comparison of the
+    chain-graph card tests."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import chain_graph_cases
+
+    return chain_graph_cases
+
+
+def chain_graph_phase(card: str) -> dict:
+    """Phase 3's chain-graph part: the kernel against its plain version on
+    random chunks (``tests/chain_graph_cases.py``), then timed at both
+    shapes. Returns the worst float gap and the times."""
+    from aprilslam_tpu_torch.ops import chain_graph
+    from aprilslam_tpu_torch.slam import graph as G
+    cases = chain_graph_cases()
+    SHAPES, chain_chunk, compare_scans = cases.SHAPES, cases.chain_chunk, cases.compare_scans
+    state_to, to_device = cases.state_to, cases.to_device
+
+    dev = torch.device("cuda")
+    worst, n = 0.0, 0
+    for B, D, M in SHAPES:
+        for seed in range(3):
+            for project in (True, False):
+                state = G.init_graph(M, device=dev)
+                for c in (seed, seed + 100):
+                    chunk = chain_chunk(c, B, D, M)
+                    before = chain_graph.chain_graph_launches
+                    got = G.scan_chain_graph(state, *to_device(chunk, dev), project_rotation=project)
+                    torch.cuda.synchronize()
+                    check(chain_graph.chain_graph_launches == before + 1, "chain graph: not one launch")
+                    plain = G.scan_chain_graph_plain(state, *to_device(chunk, dev), project_rotation=project)
+                    cpu = G.scan_chain_graph(state_to(state, "cpu"), *to_device(chunk, "cpu"),
+                                             project_rotation=project)
+                    gap = max(compare_scans(got, plain), compare_scans(got, cpu))
+                    check(gap <= 1e-5, f"chain graph {B}x{D}x{M} chunk {c}: float gap {gap} > 1e-5")
+                    worst, n = max(worst, gap), n + 1
+                    state = got[0]
+    log(f"chain graph: kernel == plain on {n} chunks (integers equal, floats within {worst:.3g})")
+    timing = {"card": card, "max_rel_gap": worst, "chunks_checked": n,
+              "empty_launch_ms": time_cuda(chain_graph.empty_launch, 500),
+              "empty_launch_device_ms": time_cuda_graph(chain_graph.empty_launch)}
+    for B, D, M in SHAPES:
+        name = f"B{B}_D{D}_M{M}"
+        state = G.init_graph(M, device=dev)
+        chunk = to_device(chain_chunk(0, B, D, M), dev)
+        state, _ = G.scan_chain_graph(state, *chunk)  # a warm graph: re-anchoring, hops, keeps
+        chunk = to_device(chain_chunk(100, B, D, M), dev)
+        args = (state.local, state.world, state.weight, state.present, state.updated, state.reference,
+                state.coordinate_id, state.has_estimate, *chunk)
+        timing[name] = {
+            "kernel_ms": time_cuda(lambda: chain_graph.chain_graph_scan(*args), 200),
+            "kernel_device_ms": time_cuda_graph(lambda: chain_graph.chain_graph_scan(*args)),
+            "scan_ms": time_cuda(lambda: G.scan_chain_graph(state, *chunk), 100),
+            "plain_ms": time_cuda(lambda: G.scan_chain_graph_plain(state, *chunk), 3),
+        }
+        log(f"chain graph timing {name}: kernel {timing[name]['kernel_ms']:.4f} ms eager, "
+            f"{timing[name]['kernel_device_ms']:.4f} ms on the card; with the projection "
+            f"{timing[name]['scan_ms']:.4f} ms; plain {timing[name]['plain_ms']:.2f} ms; empty launch "
+            f"{timing['empty_launch_ms']:.4f} / {timing['empty_launch_device_ms']:.4f} ms [{card}]")
+    return timing
+
+
+def closure_scan_phase(c2: tuple, params, dev) -> dict:
+    """Phase 5's chain-graph part: the pgo-on step of config 2 (the closure
+    cell's) over the loop's chunks, every chunk's scan input recorded, one
+    launch per chunk; then each recorded chunk through the kernel and the
+    plain version."""
+    from aprilslam_tpu_torch.ops import chain_graph
+    from aprilslam_tpu_torch.slam import SlamSystem, pipeline
+    from aprilslam_tpu_torch.slam import graph as G
+    compare_scans = chain_graph_cases().compare_scans
+
+    cfg, cam, _traj, chunks = c2
+    slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, detector_params=params, device=dev,
+                      estimator="ba", ba_schedule="chunk", graph_capacity=16, init_joint_iters=3,
+                      ba_chunk_iters=4, pnp_iters=3, pgo=True)
+    recorded = []
+    scan = pipeline.scan_chain_graph
+
+    def record(state, ids, T, ok, project_rotation=True):
+        recorded.append((state, ids.clone(), T.clone(), ok.clone()))
+        return scan(state, ids, T, ok, project_rotation=project_rotation)
+
+    pipeline.scan_chain_graph = record
+    try:
+        before = chain_graph.chain_graph_launches
+        for c in chunks:
+            slam.process(c)
+        torch.cuda.synchronize()
+        launches = chain_graph.chain_graph_launches - before
+    finally:
+        pipeline.scan_chain_graph = scan
+    check(launches == len(chunks), f"closure chunks: chain-graph launches {launches} != {len(chunks)}")
+    worst = max(compare_scans(G.scan_chain_graph(*r), G.scan_chain_graph_plain(*r)) for r in recorded)
+    check(worst <= 1e-5, f"closure chunks: kernel against plain float gap {worst} > 1e-5")
+    log(f"closure chunks: {launches} chain-graph launches for {len(chunks)} chunks; kernel == plain on "
+        f"each recorded chunk (floats within {worst:.3g})")
+    return {"chunks": len(chunks), "launches": launches, "max_rel_gap": worst}
 
 
 def check_outputs(outs, n: int, what: str) -> None:
@@ -1383,7 +1495,7 @@ def main() -> int:
         adaptive_threshold_with_levels, decimate, to_grayscale)
     from aprilslam_tpu_torch.eval import ate_eval
     from aprilslam_tpu_torch.geometry import PinholeCamera
-    from aprilslam_tpu_torch.ops import ccl
+    from aprilslam_tpu_torch.ops import ccl, chain_graph
     from aprilslam_tpu_torch.sim import SceneConfig, scene_tensors
     from aprilslam_tpu_torch.slam import SlamSystem
 
@@ -1394,10 +1506,13 @@ def main() -> int:
 
     from aprilslam_tpu_torch.runtime import build_runtime
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         ccl_build, runtime_build = pool.submit(ccl.build_ccl, True), pool.submit(build_runtime)
+        cg_build = pool.submit(chain_graph.build_chain_graph, True)
         (lib_path, build_s), (rt_path, rt_build_s) = ccl_build.result(), runtime_build.result()
-    log(f"build: {lib_path.name} in {build_s:.2f} s; {rt_path.name} in {rt_build_s:.2f} s")
+        cg_path, cg_build_s = cg_build.result()
+    log(f"build: {lib_path.name} in {build_s:.2f} s; {cg_path.name} in {cg_build_s:.2f} s; "
+        f"{rt_path.name} in {rt_build_s:.2f} s")
 
     # ---- main-path frames (also phase 3's rendered inputs) ----------------
     cfg = SceneConfig.from_file()
@@ -1463,11 +1578,12 @@ def main() -> int:
     Bm, Hm, Wm = main_trin.shape
     log(f"ccl timing {Bm}x{Hm}x{Wm}: kernel {kernel_ms:.4f} ms ({device_ms:.4f} ms on the card), "
         f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes) [{card}]")
+    chain_timing = chain_graph_phase(card)
 
     # ---- 4. main path -----------------------------------------------------
     slam = SlamSystem(cam, cfg.family, cfg.tag_size_inner, detector_params=params,
                       device=dev, **headline)
-    ccl.ccl_launches = 0
+    ccl.ccl_launches = chain_graph.chain_graph_launches = 0
     t0 = time.perf_counter()
     outs = [slam.process(c) for c in chunks]
     torch.cuda.synchronize()
@@ -1475,6 +1591,8 @@ def main() -> int:
     launches = ccl.ccl_launches
     main_ba = slam.ba_state  # the map the accuracy pass ended with (phase 12)
     check(launches == len(chunks), f"ccl launches {launches} != chunks {len(chunks)}")
+    chain_launches = chain_graph.chain_graph_launches
+    check(chain_launches == len(chunks), f"chain-graph launches {chain_launches} != chunks {len(chunks)}")
     check_outputs(outs, args.frames, "main path")
     ate, vrate, n_invalid, conf = ate_eval(cfg, traj.positions, traj.rotations, outs)
     log(f"main path: {args.frames} frames, ATE {ate:.4f} su, valid {vrate:.4f} "
@@ -1494,6 +1612,7 @@ def main() -> int:
 
     # ---- 5. config 2 ------------------------------------------------------
     config2, config2_launches, config2_frames = config2_phase(params, dev, card)
+    closure_scan = closure_scan_phase(config2_frames, params, dev)
 
     # ---- 6. the other estimators and schedules, the sparse coupling -------
     options = options_phase(chunks[0], cfg, cam, params, dev, headline_ba, headline)
@@ -1586,6 +1705,16 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "chain_graph",
+        "route": "cuda",
+        "source": "aprilslam_tpu_torch/csrc/chain_graph.cu",
+        "replaces": None,
+        "launches": chain_launches,
+        "closure_chunks": closure_scan,
+        "timing": chain_timing,
+        "bound_by": "latency: the serial chain of B * D slot updates",
         "library_ms": None,
     }]
     log(json.dumps({"main_path": {

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from chain_graph_cases import SHAPES, chain_chunk, compare_scans
 
 from aprilslam_tpu.detect import DetectorParams
 from aprilslam_tpu.geometry import PinholeCamera, se3_exp
@@ -31,6 +32,7 @@ from aprilslam_tpu_torch import geometry as TG
 from aprilslam_tpu_torch import slam as TS
 from aprilslam_tpu_torch.convert import state_from_jax_numpy, state_to_numpy
 from aprilslam_tpu_torch.eval import ate_eval
+from aprilslam_tpu_torch.ops import chain_graph as chain_graph_op
 from aprilslam_tpu_torch.sim import SceneConfig as TSceneConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -66,15 +68,18 @@ def assert_state_close(got, want, atol=1e-4):
             np.testing.assert_allclose(g, v, atol=atol, rtol=1e-4, err_msg=k)
 
 
+# The frames of test_update_graph_sequence: (ids, ok), 3 slots each.
+GRAPH_SEQUENCE = [([3, 5, -1], [1, 1, 0]), ([1, 3, 7], [1, 1, 1]), ([7, 9, -1], [1, 1, 0]),
+                  ([0, 5, 9], [0, 1, 1]), ([2, 5, 11], [1, 1, 1]), ([-1, -1, -1], [0, 0, 0])]
+
+
 def test_update_graph_sequence():
     """Chaining, multi-hop, keep-world and re-anchoring from identical states."""
     rng = np.random.default_rng(0)
-    frames = [([3, 5, -1], [1, 1, 0]), ([1, 3, 7], [1, 1, 1]), ([7, 9, -1], [1, 1, 0]),
-              ([0, 5, 9], [0, 1, 1]), ([2, 5, 11], [1, 1, 1]), ([-1, -1, -1], [0, 0, 0])]
     with jax.enable_x64(False):
         js = JG.init_graph(16)
     ts = TS.init_graph(16, device="cpu")
-    for ids, ok in frames:
+    for ids, ok in GRAPH_SEQUENCE:
         ids = np.asarray(ids, np.int32)
         ok = np.asarray(ok, bool)
         T = random_poses(rng, 3)
@@ -89,6 +94,105 @@ def test_update_graph_sequence():
         np.testing.assert_allclose(float(TS.average_distance_to_nodes(ts)), float(jd), rtol=1e-5)
         assert_state_close(ts, to_numpy(js))
     assert int(ts.coordinate_id) == 1
+
+
+def frame_loop(state, ids, T, ok, project_rotation):
+    """``update_graph`` then ``estimate_pose_average`` frame by frame, as the
+    step ran them before the chunk's scan."""
+    outs = []
+    for b in range(ids.shape[0]):
+        state = TS.update_graph(state, ids[b], T[b], ok[b])
+        T_avg, valid, state = TS.estimate_pose_average(state, project_rotation=project_rotation)
+        outs.append(dict(avg_T=T_avg, valid=valid, visible=state.visible, present=state.present,
+                         weight=state.weight, local=state.local, world=state.world,
+                         coordinate_id=state.coordinate_id, n_visible=state.visible.sum(),
+                         n_nodes=state.present.sum(), avg_node_distance=TS.average_distance_to_nodes(state)))
+    return state, TS.GraphScan(**{k: torch.stack([o[k] for o in outs]) for k in outs[0]})
+
+
+@pytest.mark.parametrize("project_rotation", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}_D{}_M{}".format(*s))
+@pytest.mark.parametrize("seed", [0, 2, 7])
+def test_scan_chain_graph_equals_frame_loop(shape, seed, project_rotation):
+    """Two chunks in a row (the first re-anchors mid-chunk, seeds 0 and 2
+    once with no known tag to chain through; empty frames, slots not ok, ids
+    out of range): the scan's final state and every frame's results equal
+    the per-frame loop's."""
+    B, D, M = shape
+    state = TS.init_graph(M, device="cpu")
+    for c in (seed, seed + 100):
+        chunk = tuple(torch.as_tensor(x) for x in chain_chunk(c, B, D, M))
+        before = chain_graph_op.chain_graph_launches
+        got = TS.scan_chain_graph(state, *chunk, project_rotation=project_rotation)
+        assert chain_graph_op.chain_graph_launches == before
+        assert compare_scans(got, frame_loop(state, *chunk, project_rotation)) <= 1e-6
+        state = got[0]
+
+
+def test_scan_chain_graph_matches_jax_sequence():
+    """test_update_graph_sequence's frames fed as one chunk: the final state,
+    each frame's average and node distance equal the JAX package's."""
+    rng = np.random.default_rng(0)
+    ids = np.asarray([f[0] for f in GRAPH_SEQUENCE], np.int32)
+    ok = np.asarray([f[1] for f in GRAPH_SEQUENCE], bool)
+    T = np.stack([random_poses(rng, 3) for _ in GRAPH_SEQUENCE])
+    want_T, want_valid, want_d = [], [], []
+    with jax.enable_x64(False):
+        js = JG.init_graph(16)
+        for b in range(len(GRAPH_SEQUENCE)):
+            js = JG.update_graph(js, jnp.asarray(ids[b]), jnp.asarray(T[b]), jnp.asarray(ok[b]))
+            jT, jv, js = JG.estimate_pose_average(js)
+            want_T.append(np.asarray(jT))
+            want_valid.append(bool(jv))
+            want_d.append(float(JG.average_distance_to_nodes(js)))
+    ts, scan = TS.scan_chain_graph(TS.init_graph(16, device="cpu"), t(ids), t(T), t(ok))
+    assert_state_close(ts, to_numpy(js))
+    np.testing.assert_allclose(scan.avg_T.numpy(), np.stack(want_T), atol=1e-4)
+    np.testing.assert_array_equal(scan.valid.numpy(), want_valid)
+    np.testing.assert_allclose(scan.avg_node_distance.numpy(), want_d, rtol=1e-5)
+    assert int(ts.coordinate_id) == 1
+
+
+def _kernel_args(M=16, B=2, D=4):
+    s = TS.init_graph(M, device="cpu")
+    ids, T, ok = (torch.as_tensor(x) for x in chain_chunk(0, B, D, M))
+    return dict(local=s.local, world=s.world, weight=s.weight, present=s.present, updated=s.updated,
+                reference=s.reference, coordinate_id=s.coordinate_id, has_estimate=s.has_estimate,
+                ids=ids, T_cam_tag=T, ok=ok)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(ids=lambda a: a.long()), "ids as a contiguous .* torch.int32"),
+    (dict(T_cam_tag=lambda a: a.double()), "T_cam_tag as a contiguous .* torch.float32"),
+    (dict(T_cam_tag=lambda a: a.transpose(-1, -2)), "contiguous=False"),
+    (dict(ok=lambda a: a[:, :2]), "ok as a contiguous"),
+    (dict(reference=lambda a: a.long()), "reference as a contiguous"),
+    (dict(ids=lambda a: a[:0]), "B >= 1"),
+    ({}, "CUDA tensors"),
+], ids=["ids-int64", "T-float64", "T-strided", "ok-shape", "reference-int64", "no-frames", "cpu"])
+def test_chain_graph_wrapper_refuses(bad, match):
+    """The kernel's wrapper checks dtypes, shapes and contiguity before the
+    device, and takes CUDA tensors only."""
+    args = _kernel_args()
+    for k, f in bad.items():
+        args[k] = f(args[k])
+    before = chain_graph_op.chain_graph_launches
+    with pytest.raises(ValueError, match=match):
+        chain_graph_op.chain_graph_scan(**args)
+    assert chain_graph_op.chain_graph_launches == before
+
+
+def test_chain_graph_wrapper_refuses_capacity():
+    with pytest.raises(ValueError, match="slots"):
+        chain_graph_op.chain_graph_scan(**_kernel_args(M=chain_graph_op.MAX_CAPACITY + 1))
+
+
+def test_scan_chain_graph_refuses_shapes():
+    s = TS.init_graph(16, device="cpu")
+    ids, T, ok = (torch.as_tensor(x) for x in chain_chunk(0, 2, 4, 16))
+    for args in ((ids[0], T[0], ok[0]), (ids, T[..., :3, :], ok), (ids, T, ok[:1]), (ids[:0], T[:0], ok[:0])):
+        with pytest.raises(ValueError, match="a chunk takes"):
+            TS.scan_chain_graph(s, *args)
 
 
 def _localization_problem(seed):

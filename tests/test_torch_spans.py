@@ -30,9 +30,10 @@ STEP = dict(estimator="ba", ba_schedule="chunk", pgo=True, pgo_loop_gap=4, graph
 PARAMS = DetectorParams(quad_decimate=2, min_cluster_pts=12, max_detections=16, max_boundary=8192)
 STAGES = ("stage_threshold", "stage_ccl", "stage_quads", "stage_decode", "stage_refine")
 # Spans per chunk of B frames under the chunk schedule with pgo; the two
-# solves' spans open only when their gates pass.
+# solves' spans open only when their gates pass; the chaining graph's scan
+# runs once for the whole chunk.
 PER_CHUNK = {"slam.step": 1, "slam.front": 1, "slam.detect": 1, "slam.pnp": 1, "slam.back": 1,
-             "slam.pre_localize": 1, "slam.scan": 1, "slam.scan.graph": B, "slam.scan.keyframe": B,
+             "slam.pre_localize": 1, "slam.scan": 1, "slam.scan.graph": 1, "slam.scan.keyframe": B,
              "slam.scan.pgo": B, "slam.ba": 1, "slam.taggraph": 1, "slam.reloc": 1,
              "slam.observability": 1, **{s: 1 for s in STAGES}}
 PROFILED = (6, 7)  # the last chunks, run under the profiler too

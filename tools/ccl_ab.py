@@ -32,7 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from aprilslam_tpu_torch.ops import ccl  # noqa: E402
+from aprilslam_tpu_torch.ops import ccl, nvcc  # noqa: E402
 
 OUT = ROOT / "build" / "ccl_ab"
 
@@ -43,7 +43,7 @@ def build_all(sources: dict[str, Path]) -> dict[str, Path]:
     procs = {}
     for name, src in sources.items():
         lib = OUT / f"{name}.so"
-        cmd = [ccl._nvcc(), *ccl.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+        cmd = [nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():

@@ -10,6 +10,10 @@ over the S x B frames of every sequence, then each sequence's back end, a
 host loop over its chunk's frames, on its own state, in sequence order. The
 front end works frame by frame and the sequences share nothing else, so the
 outputs are those of S separate steps, stacked.
+
+Each call opens ``slam.fleet``, with ``slam.fleet.front`` around the
+batched front end (one ``slam.front``) and ``slam.fleet.back`` around the S
+back ends (S ``slam.back``) and the stack of their outputs.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ..detect import Detections, DetectorParams
 from ..families import TagFamily
 from ..geometry import PinholeCamera
 from ..slam.pipeline import SlamOutputs, _step_halves, build_slam_step
+from ..utils.profiling import span
 from .mesh import Mesh
 
 
@@ -63,22 +68,25 @@ def build_parallel_slam(
     front, back = _step_halves(step)
 
     def parallel_step(states: list, frames):
-        frames = shard(frames)
-        if len(states) != n_seq or frames.shape[0] != n_seq:
-            raise ValueError(f"expected {n_seq} states and sequences, got {len(states)} "
-                             f"and {frames.shape[0]}")
-        B = frames.shape[1]
-        det, *poses = front(frames.reshape((n_seq * B,) + frames.shape[2:]))
-        new_states, outs = [], []
-        for s in range(n_seq):
-            rows = slice(s * B, (s + 1) * B)
-            det_s = Detections(**{f.name: getattr(det, f.name)[rows] for f in fields(Detections)})
-            st, o = back(states[s], (det_s, *(x[rows] for x in poses)))
-            new_states.append(st)
-            outs.append(o)
-        return new_states, SlamOutputs(**{
-            f.name: torch.stack([getattr(o, f.name) for o in outs]) for f in fields(SlamOutputs)
-        })
+        with span("slam.fleet"):
+            frames = shard(frames)
+            if len(states) != n_seq or frames.shape[0] != n_seq:
+                raise ValueError(f"expected {n_seq} states and sequences, got {len(states)} "
+                                 f"and {frames.shape[0]}")
+            B = frames.shape[1]
+            with span("slam.fleet.front"):
+                det, *poses = front(frames.reshape((n_seq * B,) + frames.shape[2:]))
+            with span("slam.fleet.back"):
+                new_states, outs = [], []
+                for s in range(n_seq):
+                    rows = slice(s * B, (s + 1) * B)
+                    det_s = Detections(**{f.name: getattr(det, f.name)[rows] for f in fields(Detections)})
+                    st, o = back(states[s], (det_s, *(x[rows] for x in poses)))
+                    new_states.append(st)
+                    outs.append(o)
+                return new_states, SlamOutputs(**{
+                    f.name: torch.stack([getattr(o, f.name) for o in outs]) for f in fields(SlamOutputs)
+                })
 
     def init_states() -> list:
         return [init_one() for _ in range(n_seq)]
